@@ -87,7 +87,7 @@ def build(extra_flags=()) -> pathlib.Path:
         nvcc = (str(pathlib.Path(CUDA_HOME) / "bin" / "nvcc") if CUDA_HOME
                 else "nvcc")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")   # concurrent builders
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")   # one per process
         res = subprocess.run([nvcc, *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
                               str(SOURCES[0])], capture_output=True, text=True)
         if res.returncode != 0:

@@ -4,7 +4,7 @@ A copy of the JAX package's module of the same name. In the port it is the
 oracle of `chip_smoke.py` and its input maker, never on the device path.
 
 Why this exists: CRS generation (the analogue of
-/root/reference/src/generator.rs:81-118) is a ONE-TIME trusted-setup of
+the reference's src/generator.rs:81-118) is a ONE-TIME trusted-setup of
 twelve scalar multiplications and a single pairing.  Compiling that onto
 the accelerator buys nothing -- the XLA graph for it (8 scalar-mul scans +
 Miller loop + batched inversions) took >5 minutes of compile time on CPU
