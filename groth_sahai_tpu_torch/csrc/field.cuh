@@ -14,7 +14,9 @@
 // Bound discipline (same formulas as ops/fp.py):
 //   * mont_mul needs value(a) * value(b) <= 2^16 p^2; output < 2p;
 //   * redc needs t < p R (2N+1 exact limbs); output < 2p;
-//   * sub(a, b, kp) = a - b + k p needs bound(b) <= k p.
+//   * sub(a, b, kp) = sub_k(a, b, k) = a - b + k p needs bound(b) <= k p.
+// add, sub, sub_k and dbl read limb j before they write it, so `out` may
+// be one of the inputs.
 // The Montgomery output is the unique (t + M p) / R with M = -t p^-1 mod R
 // and no final subtraction, so it equals the plain version limb for limb.
 #pragma once
@@ -35,6 +37,19 @@ struct Field {
   uint32_t one[N];
   uint32_t n0;
 };
+
+// The Field of a kernel launch, from host limb arrays (`one` may be null).
+template <int N>
+inline Field<N> make_field(const uint32_t* p, const uint32_t* one,
+                           uint32_t n0) {
+  Field<N> f;
+  for (int j = 0; j < N; ++j) {
+    f.p[j] = p[j];
+    f.one[j] = one ? one[j] : 0;
+  }
+  f.n0 = n0;
+  return f;
+}
 
 // Exact carry propagation of K 64-bit columns into K 16-bit limbs. The carry
 // out of the top column is dropped (callers keep values below 2^(16 K)).
@@ -79,6 +94,30 @@ __device__ __forceinline__ void sub(const uint32_t (&a)[N],
     out[j] = v & kMask;
     c = v >> kW;
   }
+}
+
+// a - b + k p with k p formed in the chain (k p_j < 2^23 for k <= 128), the
+// form the tower formulas use: the same integer as sub() with kp = k p.
+// bound(b) <= k p.
+template <int N>
+__device__ __forceinline__ void sub_k(const uint32_t (&a)[N],
+                                      const uint32_t (&b)[N], uint32_t k,
+                                      const uint32_t (&p)[N],
+                                      uint32_t (&out)[N]) {
+  uint32_t c = 1;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const uint32_t v = a[j] + k * p[j] + kMask - b[j] + c;
+    out[j] = v & kMask;
+    c = v >> kW;
+  }
+}
+
+// 2 a with exact limbs. Bound: 2 bound(a).
+template <int N>
+__device__ __forceinline__ void dbl(const uint32_t (&a)[N],
+                                    uint32_t (&out)[N]) {
+  add<N>(a, a, out);
 }
 
 // Fused CIOS Montgomery product a b R^-1 mod p, output < 2p.

@@ -32,17 +32,6 @@ namespace {
 
 constexpr int kThreads = 128;
 
-template <int N>
-gs::Field<N> make_field(const uint32_t* p, const uint32_t* one, uint32_t n0) {
-  gs::Field<N> f;
-  for (int j = 0; j < N; ++j) {
-    f.p[j] = p[j];
-    f.one[j] = one ? one[j] : 0;
-  }
-  f.n0 = n0;
-  return f;
-}
-
 template <int K>
 __device__ __forceinline__ void load(const int64_t* src, int64_t m,
                                      int64_t lane, uint32_t (&x)[K]) {
@@ -128,7 +117,7 @@ int launch_mont_mul(const int64_t* a, const int64_t* b, int64_t* out,
                     int64_t m, const uint32_t* p, uint32_t n0,
                     cudaStream_t s) {
   mont_mul_kernel<N><<<grid_of(m), kThreads, 0, s>>>(
-      make_field<N>(p, nullptr, n0), a, b, out, m);
+      gs::make_field<N>(p, nullptr, n0), a, b, out, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -143,7 +132,7 @@ template <int N>
 int launch_redc(const int64_t* t, int64_t* out, int64_t m, const uint32_t* p,
                 uint32_t n0, cudaStream_t s) {
   redc_kernel<N><<<grid_of(m), kThreads, 0, s>>>(
-      make_field<N>(p, nullptr, n0), t, out, m);
+      gs::make_field<N>(p, nullptr, n0), t, out, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -152,7 +141,7 @@ int launch_pow_const(const int64_t* a, const int64_t* bits, int nbits,
                      int64_t* out, int64_t m, const uint32_t* p,
                      const uint32_t* one, uint32_t n0, cudaStream_t s) {
   pow_const_kernel<N><<<grid_of(m), kThreads, 0, s>>>(
-      make_field<N>(p, one, n0), a, bits, nbits, out, m);
+      gs::make_field<N>(p, one, n0), a, bits, nbits, out, m);
   return static_cast<int>(cudaGetLastError());
 }
 

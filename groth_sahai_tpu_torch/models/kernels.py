@@ -4,7 +4,10 @@ The part of ``groth_sahai_tpu/models/kernels.py`` on the verification
 path. The reference pads every variable-length axis to a power of two so
 that XLA compiles one executable per size bucket; the port keeps the same
 padding (points at infinity contribute the identity to a Miller product),
-so both packages run the same batch shapes and give the same limbs.
+so both packages run the same batch shapes, and so take the same kernels
+at each size: at Kp = 2048 the Miller loop runs on 8192 lanes over the
+field kernels, and the tree reduction (from 4096 lanes down) and the final
+exponentiation on (2, 2) take the fused `fq12_mul` and `cyc_pow`.
 
   * the verifier's five pairing_sum terms plus the rhs fold become ONE
     signed Miller product (`miller_product_signed`) whose conjugation mask

@@ -27,136 +27,35 @@ launches the kernel or raises. There is no fallback and no switch.
 Each wrapper counts its launches in a plain int attribute, ``launches``,
 raised by one where it launches its kernel and nowhere else.
 
-Build: at first use on a card, ``nvcc`` compiles the sources into a shared
-library with a plain C interface under ``groth_sahai_tpu_torch/build/``
-(named by a hash of the sources), loaded with ``ctypes``.
+Build: at first use on a card (see :mod:`.cuda_build`), ``nvcc`` compiles
+``csrc/fp_kernels.cu`` into a plain-C library loaded with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import subprocess
 
 import numpy as np
 import torch
 
-from .limbs import int_to_limbs
-
-_PKG = pathlib.Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-SOURCES = (CSRC / "fp_kernels.cu", CSRC / "field.cuh")
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
-
-_lib = None
+from .cuda_build import KernelLibrary, check, host_words, lanes, on_cpu, stream
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
-_ARGTYPES = {
+LIBRARY = KernelLibrary("gs_fp", "fp_kernels.cu", ["field.cuh"], {
     "gs_mont_mul": [_I, _P, _P, _P, _I64, _P, _U32, _P],
     "gs_mul_wide": [_I, _P, _P, _P, _I64, _P],
     "gs_redc": [_I, _P, _P, _I64, _P, _U32, _P],
     "gs_pow_const": [_I, _P, _P, _I, _P, _I64, _P, _P, _U32, _P],
-}
-
-
-def library_path() -> pathlib.Path:
-    h = hashlib.sha256()
-    for src in SOURCES:
-        h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libgs_fp-{h.hexdigest()[:12]}.so"
-
-
-def build(extra_flags=()) -> pathlib.Path:
-    """Compile the kernels (if this source hash is not built yet) and load them.
-
-    Returns the library's path. `extra_flags` go to nvcc (e.g. ``-Xptxas -v``
-    to print registers and spills); the compiler's output is printed then.
-    """
-    global _lib
-    out = library_path()
-    if not out.exists() or extra_flags:
-        from torch.utils.cpp_extension import CUDA_HOME
-        nvcc = (str(pathlib.Path(CUDA_HOME) / "bin" / "nvcc") if CUDA_HOME
-                else "nvcc")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")   # one per process
-        res = subprocess.run([nvcc, *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
-                              str(SOURCES[0])], capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        if extra_flags:
-            print(res.stdout + res.stderr, end="")
-        tmp.replace(out)
-    if _lib is None:
-        lib = ctypes.CDLL(str(out))
-        for name, argtypes in _ARGTYPES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return out
-
-
-def _library():
-    if _lib is None:
-        build()
-    return _lib
-
-
-# --------------------------------------------------------------- host constants
-
-def _host_words(field, value: int) -> int:
-    """Address of `value`'s limbs as a host uint32 array (p or R mod p),
-    made once per field; the C entry copies them into the kernel's
-    parameters."""
-    key = ("ctypes", value)
-    if key not in field._consts:
-        field._consts[key] = (ctypes.c_uint32 * field.n)(
-            *[int(x) for x in int_to_limbs(value, field.n)])
-    return ctypes.addressof(field._consts[key])
+})
 
 
 def exponent_bits(e: int) -> list:
     """MSB-first bit string of e (the chain's schedule)."""
     n = e.bit_length()
     return [(e >> (n - 1 - i)) & 1 for i in range(n)]
-
-
-# ------------------------------------------------------------------- launching
-
-def _on_cpu(*xs) -> bool:
-    return all(x.device.type == "cpu" for x in xs)
-
-
-def _lanes(x, rows: int, what: str):
-    """Check a CUDA limb tensor and flatten it to a contiguous (rows, M)."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
-    if x.dtype != torch.int64:
-        raise TypeError(f"{what}: expected int64 limbs, got {x.dtype}")
-    if x.shape[0] != rows:
-        raise ValueError(f"{what}: expected {rows} limb rows, got {x.shape[0]}")
-    return x.contiguous().reshape(rows, -1)
-
-
-def _check(rc: int, name: str, nl: int):
-    if rc == -1:
-        raise ValueError(f"{name}: no kernel instantiated for {nl} limbs")
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-
-
-def _stream(x) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 # ---------------------------------------------------------------- plain versions
@@ -218,18 +117,18 @@ def mont_mul(field, a, b):
     Replaces pallas_fp.py:mont_mul (_mont_mul_kernel). Needs
     value(a)*value(b) <= 2^16 p^2; output < 2p.
     """
-    if _on_cpu(a, b):
+    if on_cpu(a, b):
         return mont_mul_plain(field, a, b)
     nl = field.n
-    a2 = _lanes(a, nl, "mont_mul a")
-    b2 = _lanes(b, nl, "mont_mul b")
+    a2 = lanes(a, nl, "mont_mul a")
+    b2 = lanes(b, nl, "mont_mul b")
     out = torch.empty_like(a2)
     m = a2.shape[1]
     if m:
-        _check(_library().gs_mont_mul(
+        check(LIBRARY.get().gs_mont_mul(
             nl, a2.data_ptr(), b2.data_ptr(), out.data_ptr(), m,
-            _host_words(field, field.p),
-            field.n0, _stream(a2)), "mont_mul", nl)
+            host_words(field, field.p),
+            field.n0, stream(a2)), "mont_mul", nl)
         mont_mul.launches += 1
     return out.reshape(a.shape)
 
@@ -239,17 +138,17 @@ def mul_wide(field, a, b):
 
     Replaces pallas_fp.py:mul_wide (_mul_wide_kernel).
     """
-    if _on_cpu(a, b):
+    if on_cpu(a, b):
         return mul_wide_plain(field, a, b)
     nl = field.n
-    a2 = _lanes(a, nl, "mul_wide a")
-    b2 = _lanes(b, nl, "mul_wide b")
+    a2 = lanes(a, nl, "mul_wide a")
+    b2 = lanes(b, nl, "mul_wide b")
     m = a2.shape[1]
     out = torch.empty((2 * nl + 1, m), dtype=torch.int64, device=a2.device)
     if m:
-        _check(_library().gs_mul_wide(
+        check(LIBRARY.get().gs_mul_wide(
             nl, a2.data_ptr(), b2.data_ptr(), out.data_ptr(), m,
-            _stream(a2)), "mul_wide", nl)
+            stream(a2)), "mul_wide", nl)
         mul_wide.launches += 1
     return out.reshape((2 * nl + 1,) + a.shape[1:])
 
@@ -259,17 +158,17 @@ def redc(field, t):
 
     Replaces pallas_fp.py:redc (_redc_kernel).
     """
-    if _on_cpu(t):
+    if on_cpu(t):
         return redc_plain(field, t)
     nl = field.n
-    t2 = _lanes(t, 2 * nl + 1, "redc t")
+    t2 = lanes(t, 2 * nl + 1, "redc t")
     m = t2.shape[1]
     out = torch.empty((nl, m), dtype=torch.int64, device=t2.device)
     if m:
-        _check(_library().gs_redc(
+        check(LIBRARY.get().gs_redc(
             nl, t2.data_ptr(), out.data_ptr(), m,
-            _host_words(field, field.p),
-            field.n0, _stream(t2)), "redc", nl)
+            host_words(field, field.p),
+            field.n0, stream(t2)), "redc", nl)
         redc.launches += 1
     return out.reshape((nl,) + t.shape[1:])
 
@@ -281,18 +180,18 @@ def pow_const(field, a, e: int):
     R mod p, square then multiply on set bits.
     """
     assert e > 0
-    if _on_cpu(a):
+    if on_cpu(a):
         return pow_const_plain(field, a, e)
     nl = field.n
-    a2 = _lanes(a, nl, "pow_const a")
+    a2 = lanes(a, nl, "pow_const a")
     m = a2.shape[1]
     out = torch.empty_like(a2)
     if m:
         bits = field._cached(("bits", e), a2.device, lambda: exponent_bits(e))
-        _check(_library().gs_pow_const(
+        check(LIBRARY.get().gs_pow_const(
             nl, a2.data_ptr(), bits.data_ptr(), bits.numel(), out.data_ptr(),
-            m, _host_words(field, field.p), _host_words(field, field.r_mod_p),
-            field.n0, _stream(a2)), "pow_const", nl)
+            m, host_words(field, field.p), host_words(field, field.r_mod_p),
+            field.n0, stream(a2)), "pow_const", nl)
         pow_const.launches += 1
     return out.reshape(a.shape)
 

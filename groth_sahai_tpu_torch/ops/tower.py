@@ -1,8 +1,6 @@
 """Extension-field tower Fq2 / Fq6 / Fq12 over the limb field core.
 
-The port of ``groth_sahai_tpu/ops/tower.py``, as that module computes
-without its fused Pallas tower kernels (its branch for batches above 4096
-lanes, where the pairing runs over the four field kernels alone):
+The port of ``groth_sahai_tpu/ops/tower.py``:
 
     Fq2  = Fq[u]  / (u^2 + 1)
     Fq6  = Fq2[v] / (v^3 - (u+1))
@@ -19,17 +17,34 @@ lanes, where the pairing runs over the four field kernels alone):
   each output coefficient is Montgomery-reduced exactly once (`redc`).
   Wide-value bounds (in units of p^2) are tracked via static k2 offsets,
   with the reference's numbers.
+* Fused kernels: as in the reference, `FQ12.mul`, `FQ12.sqr` and
+  `FQ12.cyclotomic_pow` take one launch of a fused tower kernel
+  (:mod:`.cuda_tower`) for batches of at most `FUSED_MAX_LANES` lanes.
+  Those kernels reduce in the narrow domain, so their limbs are another
+  redundant form of the same value. `cyclotomic_sqr` stays on the lazy
+  formulas at every size: the reference's fused `cyc_sqr` is not ported.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from .fp import FQ
 from . import bls12_381 as C
+from . import cuda_tower as CT
 
 
 _stack = torch.stack
+
+# The reference runs its fused Pallas tower kernels on batches of at most
+# this many lanes (ops/tower.py `FQ12.mul`, `sqr`, `cyclotomic_pow`).
+FUSED_MAX_LANES = 4096
+
+
+def _fused(*xs) -> bool:
+    return all(math.prod(x.shape[2:]) <= FUSED_MAX_LANES for x in xs)
 
 
 def _pairs(a):
@@ -260,8 +275,11 @@ class _Fq12:
     def mul(self, a, b):
         """Karatsuba over Fq6; ONE stacked (nl, 54-wide) base multiply.
 
-        Inputs < 8p, output < 2p.
+        Inputs < 8p, output < 2p. At most `FUSED_MAX_LANES` lanes: one
+        launch of the fused product kernel instead.
         """
+        if _fused(a, b):
+            return CT.fq12_mul(a, b)
         F6 = FQ6
         a0, a1 = self.c(a, 0), self.c(a, 1)
         b0, b1 = self.c(b, 0), self.c(b, 1)
@@ -279,8 +297,11 @@ class _Fq12:
         """Dedicated squaring: 2 Fq6 wide products instead of mul's 3.
 
         c0 = (a0+a1)(a0+v a1) - t - v t,  c1 = 2t,  t = a0 a1.
-        Input bound: coeffs < 4p (Miller-loop f values are < 2p).
+        Input bound: coeffs < 4p (Miller-loop f values are < 2p). At most
+        `FUSED_MAX_LANES` lanes: the fused product kernel on (a, a).
         """
+        if _fused(a):
+            return CT.fq12_sqr(a)
         F6 = FQ6
         a0, a1 = self.c(a, 0), self.c(a, 1)
         s = FQ.add(a0, a1)                       # < 8p
@@ -385,10 +406,17 @@ class _Fq12:
         MSB-first: one cyclotomic squaring per bit after the first and a
         multiply on set bits -- the reference's schedule (its sparse static
         schedule and its dense square-and-select scan give the same limbs:
-        a select on a clear bit keeps the squared value).
+        a select on a clear bit keeps the squared value). An exponent of at
+        most 64 bits on at most `FUSED_MAX_LANES` lanes is one launch of the
+        fused power kernel, as in the reference.
         """
         assert e > 0
         nbits = e.bit_length()
+        if nbits == 1:
+            return self.conj(a) if conjugate_result else a
+        if nbits <= CT.CYC_POW_NBITS and _fused(a):
+            out = CT.cyc_pow(a, e)
+            return self.conj(out) if conjugate_result else out
         out = a
         for i in range(1, nbits):
             out = self.cyclotomic_sqr(out)

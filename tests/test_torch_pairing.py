@@ -1,8 +1,11 @@
 """The port's pairing path against the JAX package and the host oracles.
 
-`miller_loop` and `final_exp` are held limb for limb against the JAX
-package's (jitted on the CPU, its non-Pallas branch); `pairing`,
-`multi_pairing` and the verifier's signed Miller product against
+`miller_loop` and `final_exp` are held against the JAX package's (jitted
+on the CPU, its non-Pallas branch): limb for limb with the port's tower on
+its lazy branch (`FUSED_MAX_LANES` set to 0, the formulas both packages run
+above 4096 lanes), and value for value as shipped, where these small
+batches take the fused tower kernels' plain versions. `pairing`,
+`multi_pairing` and the verifier's signed Miller product are held against
 `utils/hostcrypto.py` (the host twin of the device schedule) and
 `tests/oracle.py` (an independent textbook pairing).
 """
@@ -19,13 +22,15 @@ from groth_sahai_tpu.ops.curve import (g1_affine_from_ints as j_g1_from_ints,
 from groth_sahai_tpu_torch.models import kernels as MK
 from groth_sahai_tpu_torch.ops import bls12_381 as C
 from groth_sahai_tpu_torch.ops import pairing as pr
+from groth_sahai_tpu_torch.ops import tower as T
 from groth_sahai_tpu_torch.ops.curve import (G1, G2, g1_affine_from_ints,
                                              g1_affine_to_ints,
                                              g2_affine_from_ints,
                                              g2_affine_to_ints)
 from groth_sahai_tpu_torch.ops.tower import FQ12
 from groth_sahai_tpu_torch.utils import hostcrypto as H
-from groth_sahai_tpu_torch.utils.convert import affine_from_numpy, to_numpy
+from groth_sahai_tpu_torch.utils.convert import (affine_from_numpy,
+                                                 limbs_from_numpy, to_numpy)
 
 from . import oracle as O
 
@@ -46,24 +51,40 @@ def numpy_aff(a):
     return tuple(np.asarray(x) for x in a)
 
 
-def test_miller_loop_matches_jax():
-    """Limb for limb against jax.jit(pairing.miller_loop), infinity included."""
+def same_values(port_out, jax_out):
+    """Equal as Fq12 values: every coefficient reduced to [0, p)."""
+    assert FQ12.to_ints(port_out) == FQ12.to_ints(
+        limbs_from_numpy(jax_out, device="cpu"))
+
+
+def test_miller_loop_matches_jax(monkeypatch):
+    """Against jax.jit(pairing.miller_loop), infinity included: limb for
+    limb on the lazy branch, value for value on the fused kernels."""
     P, Q = points([3, 0], [5, 2])
     jP, jQ = j_g1_from_ints(P), j_g2_from_ints(Q)
     want = np.asarray(jax.jit(jpr.miller_loop)(jP, jQ))
     # the JAX package's arrays carried across as numpy
-    got = pr.miller_loop(affine_from_numpy(numpy_aff(jP), device="cpu"),
-                         affine_from_numpy(numpy_aff(jQ), device="cpu"))
+    args = (affine_from_numpy(numpy_aff(jP), device="cpu"),
+            affine_from_numpy(numpy_aff(jQ), device="cpu"))
+    fused = pr.miller_loop(*args)
+    same_values(fused, want)
+    assert FQ12.to_ints(fused)[0] == H.miller_loop(P[0], Q[0])
+    monkeypatch.setattr(T, "FUSED_MAX_LANES", 0)
+    got = pr.miller_loop(*args)
     np.testing.assert_array_equal(to_numpy(got), want)
-    assert FQ12.to_ints(got)[0] == H.miller_loop(P[0], Q[0])
 
 
-def test_final_exp_matches_jax():
-    """Limb for limb against jax.jit(pairing.final_exp) (one JAX compile)."""
+def test_final_exp_matches_jax(monkeypatch):
+    """Against jax.jit(pairing.final_exp) (one JAX compile): limb for limb
+    on the lazy branch, value for value on the fused kernels."""
     P, Q = points([2, 7], [3, 1])
     f = FQ12.from_ints([H.miller_loop(p, q) for p, q in zip(P, Q)],
                        device="cpu")
     want = np.asarray(jax.jit(jpr.final_exp)(jnp.asarray(to_numpy(f))))
+    fused = pr.final_exp(f)
+    same_values(fused, want)
+    assert FQ12.to_ints(fused) == [H.pairing(p, q) for p, q in zip(P, Q)]
+    monkeypatch.setattr(T, "FUSED_MAX_LANES", 0)
     got = pr.final_exp(f)
     np.testing.assert_array_equal(to_numpy(got), want)
 

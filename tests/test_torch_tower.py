@@ -1,8 +1,14 @@
-"""The port's Fq2/Fq6/Fq12 tower against the JAX package's, limb for limb.
+"""The port's Fq2/Fq6/Fq12 tower against the JAX package's.
 
-On the CPU the JAX tower takes its non-Pallas branch, the formulation the
-port runs at every batch size. Inputs are made from a numpy seed and passed
-to both packages as numpy limb arrays; outputs must agree in every limb.
+On the CPU the JAX tower takes its non-Pallas branch: the lazy formulas
+that both packages run above 4096 lanes. The port's `FQ12.mul`, `sqr` and
+`cyclotomic_pow` take its fused kernels (their plain versions on the CPU)
+at these small batches, as the reference does on its TPU, so each of those
+tests runs the port twice: with `FUSED_MAX_LANES` set to 0, the lazy
+branch must agree with the JAX package in every limb; as shipped, the
+fused branch must give the same values (exact equality after reduction to
+[0, p): the fused kernels leave another redundant form). Inputs are made
+from a numpy seed and passed to both packages as numpy limb arrays.
 """
 
 import numpy as np
@@ -13,6 +19,7 @@ import pytest
 from groth_sahai_tpu.ops.tower import FQ2 as JFQ2, FQ6 as JFQ6, FQ12 as JFQ12
 
 from groth_sahai_tpu_torch.ops import bls12_381 as C
+from groth_sahai_tpu_torch.ops import tower as T
 from groth_sahai_tpu_torch.ops.fp import FQ
 from groth_sahai_tpu_torch.ops.limbs import ints_to_limbs
 from groth_sahai_tpu_torch.ops.tower import FQ2, FQ6, FQ12
@@ -42,6 +49,12 @@ def same(port_out, jax_out):
     np.testing.assert_array_equal(to_numpy(port_out), np.asarray(jax_out))
 
 
+def same_values(port_out, jax_out):
+    """Equal as Fq12 values: every coefficient reduced to [0, p)."""
+    assert FQ12.to_ints(port_out) == FQ12.to_ints(
+        limbs_from_numpy(np.asarray(jax_out), device="cpu"))
+
+
 def both(x):
     return limbs_from_numpy(x, device="cpu"), jnp.asarray(x)
 
@@ -68,15 +81,19 @@ def test_fq6_mul_inv_match_jax():
 
 
 @pytest.mark.parametrize("op", ["mul", "sqr", "conj"])
-def test_fq12_product_ops_match_jax(op):
+def test_fq12_product_ops_match_jax(op, monkeypatch):
     a, ja = both(rand_coeffs(15, 12, 3, bound=2 * C.P))
     b, jb = both(rand_coeffs(16, 12, 3, bound=2 * C.P))
-    if op == "mul":
-        same(FQ12.mul(a, b), jax.jit(JFQ12.mul)(ja, jb))
-    elif op == "sqr":
-        same(FQ12.sqr(a), jax.jit(JFQ12.sqr)(ja))
-    else:
+    if op == "conj":
         same(FQ12.conj(a), jax.jit(JFQ12.conj)(ja))
+        return
+    if op == "mul":
+        port, want = lambda: FQ12.mul(a, b), jax.jit(JFQ12.mul)(ja, jb)
+    else:
+        port, want = lambda: FQ12.sqr(a), jax.jit(JFQ12.sqr)(ja)
+    same_values(port(), want)                      # fused kernel
+    monkeypatch.setattr(T, "FUSED_MAX_LANES", 0)
+    same(port(), want)                             # lazy branch, every limb
 
 
 def test_fq12_inv_matches_jax():
@@ -101,12 +118,18 @@ def test_cyclotomic_sqr_matches_jax():
     assert FQ12.to_ints(FQ12.cyclotomic_sqr(a)) == FQ12.to_ints(FQ12.sqr(a))
 
 
-def test_cyclotomic_pow_x_matches_jax():
+def test_cyclotomic_pow_x_matches_jax(monkeypatch):
     a, ja = both(cyclotomic_elems(2))
-    got = FQ12.cyclotomic_pow(a, abs(C.X))
-    same(got, jax.jit(lambda x: JFQ12.cyclotomic_pow(x, abs(C.X)))(ja))
-    same(FQ12.pow_x(a), FQ12.conj(got))
+    jax_out = jax.jit(lambda x: JFQ12.cyclotomic_pow(x, abs(C.X)))(ja)
     want = [H.f12_pow(v, abs(C.X)) for v in FQ12.to_ints(a)]
+    fused = FQ12.cyclotomic_pow(a, abs(C.X))        # fused kernel
+    same_values(fused, jax_out)
+    same(FQ12.pow_x(a), FQ12.conj(fused))
+    assert FQ12.to_ints(fused) == want
+    monkeypatch.setattr(T, "FUSED_MAX_LANES", 0)
+    got = FQ12.cyclotomic_pow(a, abs(C.X))          # lazy branch
+    same(got, jax_out)
+    same(FQ12.pow_x(a), FQ12.conj(got))
     assert FQ12.to_ints(got) == want
 
 
