@@ -9,23 +9,42 @@ Phases (any failure exits non-zero and prints no result line):
                 for sm_90a, one process per source, all at once; prints the
                 build time, the compiler's resource report and the card's
                 name and power limit;
-  2. kernels -- each of the six kernels against its plain PyTorch version on
-                the card, bit-exact, at the shapes the main path gives it:
-                the field kernels at Fq width over the pairing's stacks
-                (16384, 442368, 98304 and 8192 lanes) and at Fr width over
-                8192 lanes; the tower kernels over 4096 and 4 lanes (the
-                signed product's tree reduction and final exponentiation).
-                Seeded random inputs plus edge lanes at the top of each
-                kernel's input bound (0, 1, p-1, 2p-1, value(a)*value(b) =
-                2^16 p^2, wide t = p R - 1; Fq12 coefficients 32p - 1);
-  3. pairing -- `pairing(P, Q)` over 8192 pairs (P_i = a_i G1, Q_i = b_i G2,
-                a few infinity lanes); sampled lanes against the host oracle
-                and the GT product of all lanes against e(G1, G2)^(sum a_i b_i);
-  4. signed  -- the verifier's signed Miller product at Kp = 2048 with a
-                mixed conjugation mask, then `final_exp`; each (i, j) entry
-                against e(G1, G2)^(sum_k +-a_ik b_jk);
-  5. report  -- launch counts of phases 3 and 4 (every kernel of a path must
-                have run on it), each kernel's device time per launch
+  2. kernels -- each of the ten kernels against its plain PyTorch version on
+                the card, bit-exact, at the shapes the paths give it: the
+                field kernels at Fq width over the pairing's stacks (16384,
+                442368, 98304 and 8192 lanes) and at Fr width over 8192
+                lanes; fq12_mul over 4096 and 4 lanes, cyc_pow over 4; the
+                Miller iterations and cyc_sqr over 4096, f12_pow_dyn over
+                4096 and 1024. Seeded random inputs plus edge lanes at the
+                top of each kernel's input bound (0, 1, p-1, 2p-1,
+                value(a)*value(b) = 2^16 p^2, wide t = p R - 1; Fq12
+                coefficients 32p - 1 or 2p - 1; Miller R with Y = 10p - 1,
+                P and Q at p - 1 and at the padding point (0, 0); scalars 0,
+                r - 1, 2^272 - 1);
+  3. paths   -- five runs through the port's entry points, each against the
+                host oracle:
+                pairing-8192: `pairing(P, Q)` over 8192 pairs (P_i = a_i G1,
+                  Q_i = b_i G2, a few infinity lanes); sampled lanes and the
+                  GT product of all lanes against e(G1, G2)^(sum a_i b_i);
+                signed-2048: the verifier's signed Miller product at
+                  Kp = 2048 with a mixed conjugation mask, then `final_exp`;
+                  each (i, j) entry against e(G1, G2)^(sum_k +-a_ik b_jk);
+                pairing-4096: as pairing-8192 over 4096 pairs, the largest
+                  batch the fused Miller iterations take; then
+                  `FQ12.cyclotomic_sqr` of the outputs against `FQ12.sqr`;
+                signed-1024: the PPE of the reference's verify_ppe_334
+                  (K = 1006 pairs padded to Kp = 1024, 1002 lhs then 4 rhs
+                  terms), each entry against the host and the whole (2, 2)
+                  result through `comt_eq`;
+                gt-exp-4096: the rho-weighting of the reference's
+                  batch_verify_randomized_1024: `gt_exp` on (1024, 2, 2)
+                  with one 255-bit rho per equation (the GT outputs of
+                  pairing-4096; the product of all lanes against
+                  e(G1, G2)^(sum a_i b_i rho_i)), then on (1024) lanes with
+                  raw Miller outputs (not in GT) among them;
+  4. report  -- launch counts of each path (every kernel the reference takes
+                there must have run on it; the Miller iterations exactly
+                63 + 5 times), each kernel's device time per launch
                 (profiler) at its path shape beside its bound, the plain
                 version's time (CUDA events), one `kernels` JSON line, a
                 profile of each path, then the result line.
@@ -42,8 +61,12 @@ import sys
 import time
 import traceback
 
-BATCH = 8192          # pairs in phase 3
-K_SIGNED = 2000       # pairs per entry in phase 4 (padded to Kp = 2048)
+BATCH = 8192          # pairs of pairing-8192
+K_SIGNED = 2000       # pairs per entry of signed-2048 (padded to Kp = 2048)
+FUSED = 4096          # pairs of pairing-4096: the fused Miller loop's cap
+K_PPE = 1006          # verify_ppe_334's pairs, n + 2m + 4 (padded to 1024)
+K_PPE_RHS = 4         # its rhs terms (conjugated): u_used, theta
+EQUATIONS = 1024      # batch_verify_randomized_1024's equations
 SEED = 20261017
 
 # H100 SXM peaks (NVIDIA data sheet; CUDA programming guide throughput table):
@@ -61,12 +84,36 @@ ORIGIN = {   # kernel -> (the TPU kernel it replaces, its source in the port)
     "pow_const": ("groth_sahai_tpu/ops/pallas_fp.py:223", FP_SOURCE),
     "fq12_mul": ("groth_sahai_tpu/ops/pallas_tower.py:387", TOWER_SOURCE),
     "cyc_pow": ("groth_sahai_tpu/ops/pallas_tower.py:743", TOWER_SOURCE),
+    "cyc_sqr": ("groth_sahai_tpu/ops/pallas_tower.py:404", TOWER_SOURCE),
+    "miller_iter_dbl": ("groth_sahai_tpu/ops/pallas_tower.py:666",
+                        TOWER_SOURCE),
+    "miller_iter_add": ("groth_sahai_tpu/ops/pallas_tower.py:688",
+                        TOWER_SOURCE),
+    "f12_pow_dyn": ("groth_sahai_tpu/ops/pallas_tower.py:832", TOWER_SOURCE),
 }
-# The kernels each path must launch: at 8192 pairs the pairing runs the
-# lazy tower over the field kernels alone; the signed product's reduction
-# and final exponentiation run at <= 4096 lanes and take the tower kernels.
-PATH_KERNELS = {"pairing": ("mont_mul", "mul_wide", "redc", "pow_const"),
-                "signed": tuple(ORIGIN)}
+FIELD = ("mont_mul", "mul_wide", "redc", "pow_const")
+NEW = ("cyc_sqr", "miller_iter_dbl", "miller_iter_add", "f12_pow_dyn")
+MILLER = ("miller_iter_dbl", "miller_iter_add")
+# The kernels each path must launch, as the reference takes them: above
+# 4096 lanes the Miller loop runs the lazy tower over the field kernels
+# alone; the signed product's reduction and final exponentiation run at
+# <= 4096 lanes and take the tower kernels; at <= 4096 lanes each Miller
+# iteration is one fused launch. `None`: the kernels the path must not
+# launch (the big batches stay above the fused kernels' cap).
+PATH_KERNELS = {
+    "pairing-8192": (FIELD, NEW),
+    "signed-2048": (FIELD + ("fq12_mul", "cyc_pow"), NEW),
+    "pairing-4096": (FIELD + ("fq12_mul", "cyc_pow", "cyc_sqr") + MILLER,
+                     ("f12_pow_dyn",)),
+    "signed-1024": (FIELD + ("fq12_mul", "cyc_pow") + MILLER,
+                    ("cyc_sqr", "f12_pow_dyn")),
+    "gt-exp-4096": (("f12_pow_dyn",), MILLER + ("cyc_sqr", "cyc_pow")),
+}
+EXACT = {("pairing-4096", "miller_iter_dbl"): 63,
+         ("pairing-4096", "miller_iter_add"): 5,
+         ("signed-1024", "miller_iter_dbl"): 63,
+         ("signed-1024", "miller_iter_add"): 5,
+         ("gt-exp-4096", "f12_pow_dyn"): 2}
 
 
 def card_line() -> str:
@@ -191,15 +238,62 @@ def fq12_inputs(lanes: int, bound_p: int, gen, device, edges):
     return x
 
 
-# The shapes that carry each kernel on the main path, in lanes: at 8192
-# pairs mont_mul runs over an Fq2 batch (FQ2.mul_fq in the Miller steps),
+# The shapes that carry each kernel on the paths, in lanes: at 8192 pairs
+# mont_mul runs over an Fq2 batch (FQ2.mul_fq in the Miller steps),
 # mul_wide over the Fq12 product's 54 stacked Fq products, redc over its 12
 # coefficients, pow_const over the Fq inverse of final_exp; on the signed
 # product fq12_mul takes the first tree-reduction step, (2, 2, 1024) = 4096
-# lanes, and cyc_pow the final exponentiation's (2, 2) = 4 lanes.
+# lanes, and cyc_pow the final exponentiation's (2, 2) = 4 lanes; the
+# Miller iterations run on (2, 2, 1024) = 4096 lanes on signed-1024 and on
+# 4096 on pairing-4096, cyc_sqr on pairing-4096's outputs, f12_pow_dyn on
+# (1024, 2, 2) = 4096 lanes (and on 1024).
 PATH_LANES = {"mont_mul": 2 * BATCH, "mul_wide": 54 * BATCH,
               "redc": 12 * BATCH, "pow_const": BATCH,
-              "fq12_mul": 4096, "cyc_pow": 4}
+              "fq12_mul": 4096, "cyc_pow": 4, "cyc_sqr": FUSED,
+              "miller_iter_dbl": FUSED, "miller_iter_add": FUSED,
+              "f12_pow_dyn": FUSED}
+
+
+def fq2_inputs(lanes: int, bound_p: int, gen, device, edges):
+    """int64 [25, 2, lanes] with components < bound_p * p; lane k of the
+    first len(edges) has both components equal to edges[k]."""
+    from groth_sahai_tpu_torch.ops.fp import FQ
+    bits = (bound_p * FQ.p).bit_length() - 1
+    x = rand_limbs(FQ.n, 2 * lanes, bits, gen, device).reshape(FQ.n, 2, lanes)
+    for k, v in enumerate(edges[:lanes]):
+        x[:, :, k] = edge_limbs([v], FQ.n, device)
+    return x
+
+
+def miller_inputs(lanes: int, gen, device):
+    """(f, R, Q, P) for the Miller iterations: f < 2p; R = (X, Y, Z) with
+    X, Z < 2p, Y < 10p; Q, P affine < p. Lane 0 at the top of each bound,
+    lane 1 with P = Q = (0, 0) (the padding point) and R zero, lane 2 with
+    P = (0, 0) alone, lane 3 with Q = (0, 0) alone."""
+    from groth_sahai_tpu_torch.ops.fp import FQ
+    p = FQ.p
+    f = fq12_inputs(lanes, 2, gen, device, [2 * p - 1, 2 * p - 1])
+    R = (fq2_inputs(lanes, 2, gen, device, [2 * p - 1, 0]),
+         fq2_inputs(lanes, 10, gen, device, [10 * p - 1, 0]),
+         fq2_inputs(lanes, 2, gen, device, [2 * p - 1, 0]))
+    Q = tuple(fq2_inputs(lanes, 1, gen, device, [p - 1, 0]) for _ in range(2))
+    P = tuple(fq2_inputs(lanes, 1, gen, device, [p - 1, 0])[:, 0]
+              for _ in range(2))
+    for x in P:
+        x[:, 2] = 0
+    for x in Q:
+        x[:, :, 3] = 0
+    return f, R, Q, P
+
+
+def scalar_inputs(lanes: int, gen, device):
+    """Fr standard-form limbs [17, lanes]: random 255-bit scalars, then
+    0, r - 1, 2^272 - 1 and 1 in the first lanes."""
+    from groth_sahai_tpu_torch.ops import bls12_381 as C
+    from groth_sahai_tpu_torch.ops.fp import FR
+    s = rand_limbs(FR.n, lanes, 255, gen, device)
+    s[:, :4] = edge_limbs([0, C.R - 1, (1 << 272) - 1, 1], FR.n, device)
+    return s
 
 
 def make_cases(device):
@@ -228,6 +322,16 @@ def make_cases(device):
         a = fq12_inputs(PATH_LANES["cyc_pow"], 2, gen, device,
                         [2 * p - 1, 0])
         cases.append(("cyc_pow", FQ, PATH_LANES["cyc_pow"], (a, e)))
+    m = FUSED
+    a = fq12_inputs(m, 2, gen, device, [2 * p - 1, 0])
+    cases.append(("cyc_sqr", FQ, m, (a,)))
+    f, R, Q, P = miller_inputs(m, gen, device)
+    cases.append(("miller_iter_dbl", FQ, m, (f, R, *P)))
+    cases.append(("miller_iter_add", FQ, m, (f, R, Q, *P)))
+    for m in (FUSED, EQUATIONS):
+        a = fq12_inputs(m, 2, gen, device, [2 * p - 1, 0, 2 * p - 1])
+        cases.append(("f12_pow_dyn", FQ, m,
+                      (a, scalar_inputs(m, gen, device))))
     return cases
 
 
@@ -238,14 +342,24 @@ def plain_of(name):
     return plain[kernels()[name]]
 
 
+def flat(x):
+    """The tensors of a kernel's output (a tensor or nested tuples)."""
+    import torch
+    return [x] if torch.is_tensor(x) else [y for z in x for y in flat(z)]
+
+
 def compare(name, args):
-    """Kernel and plain version on the same inputs; max |difference|."""
-    got, want = kernels()[name](*args), plain_of(name)(*args)
+    """Kernel and plain version on the same inputs; max |difference| over
+    every output tensor."""
+    got, want = flat(kernels()[name](*args)), flat(plain_of(name)(*args))
     sync()
-    if got.shape != want.shape:
-        raise AssertionError(f"{name}: shape {tuple(got.shape)} against "
-                             f"{tuple(want.shape)}")
-    return int((got - want).abs().max().item())
+    err = 0
+    for g, w in zip(got, want, strict=True):
+        if g.shape != w.shape:
+            raise AssertionError(f"{name}: shape {tuple(g.shape)} against "
+                                 f"{tuple(w.shape)}")
+        err = max(err, int((g - w).abs().max().item()))
+    return err
 
 
 def check_kernels(device):
@@ -258,7 +372,7 @@ def check_kernels(device):
     for name, field, lanes, args in make_cases(device):
         err = compare(name, args)
         worst[name] = max(worst[name], err)
-        print(f"[kernels] {field.name} {name:9s} lanes={lanes:6d} "
+        print(f"[kernels] {field.name} {name:15s} lanes={lanes:6d} "
               f"max_abs_err={err}", flush=True)
         if err != 0:
             raise AssertionError(f"{name} on {field.name} differs from "
@@ -277,7 +391,7 @@ def check_kernels(device):
     return worst, timing
 
 
-# ----------------------------------------------------------- phases 3 and 4
+# ------------------------------------------------------------------ phase 3
 
 def host_multiples(count: int):
     """[k G1 for k = 1..count], [k G2 for k = 1..count] by repeated addition."""
@@ -297,30 +411,32 @@ def gt_power(e: int):
     return H.f12_pow(H.pairing_gen(), e % H.R)
 
 
-def pairing_inputs(mult1, mult2, rng):
+def pairing_inputs(n: int, mult1, mult2, rng):
     """Scalars a_i, b_i (0 = infinity) and the affine point lists."""
-    a = list(range(1, BATCH + 1))
-    b = list(range(1, BATCH + 1))
+    a = list(range(1, n + 1))
+    b = list(range(1, n + 1))
     rng.shuffle(b)
-    for lane in (3, BATCH // 2):             # infinity P
+    for lane in (3, n // 2):                 # infinity P
         a[lane] = 0
-    for lane in (BATCH // 3, BATCH - 2):     # infinity Q
+    for lane in (n // 3, n - 2):             # infinity Q
         b[lane] = 0
-    a[BATCH - 1] = b[BATCH - 1] = 0          # infinity on both sides
+    a[n - 1] = b[n - 1] = 0                  # infinity on both sides
     P = [None if k == 0 else mult1[k - 1] for k in a]
     Q = [None if k == 0 else mult2[k - 1] for k in b]
     return a, b, P, Q
 
 
-def run_pairing(device, mult1, mult2, rng):
-    """Phase 3 main path. Returns (counts, seconds, checks seconds)."""
+def run_pairing(path, n, device, mult1, mult2, rng):
+    """pairing-8192 and pairing-4096: `pairing(P, Q)` over n pairs (and, at
+    n <= 4096, `FQ12.cyclotomic_sqr` of the outputs, inside the counted
+    run). Returns (counts, seconds, checks seconds, inputs, outputs)."""
     import torch
     from groth_sahai_tpu_torch.ops.curve import (g1_affine_from_ints,
                                                  g2_affine_from_ints)
     from groth_sahai_tpu_torch.ops.pairing import pairing, _product_reduce
-    from groth_sahai_tpu_torch.ops.tower import FQ12
+    from groth_sahai_tpu_torch.ops.tower import FQ12, FUSED_MAX_LANES
     from groth_sahai_tpu_torch.utils import hostcrypto as H
-    a, b, P_pts, Q_pts = pairing_inputs(mult1, mult2, rng)
+    a, b, P_pts, Q_pts = pairing_inputs(n, mult1, mult2, rng)
     P = g1_affine_from_ints(P_pts, device=device)
     Q = g2_affine_from_ints(Q_pts, device=device)
     sync()
@@ -330,47 +446,62 @@ def run_pairing(device, mult1, mult2, rng):
     e = pairing(P, Q)
     sync()
     secs = time.perf_counter() - t0
+    csq = FQ12.cyclotomic_sqr(e) if n <= FUSED_MAX_LANES else None
+    sync()
     counts = read_counts()
 
     t0 = time.perf_counter()
-    if tuple(e.shape) != (25, 12, BATCH):
-        raise AssertionError(f"pairing output shape {tuple(e.shape)}")
-    sample = [0, 3, BATCH // 3, BATCH - 1] + rng.sample(range(BATCH), 6)
+    if tuple(e.shape) != (25, 12, n):
+        raise AssertionError(f"{path}: output shape {tuple(e.shape)}")
+    sample = [0, 3, n // 3, n - 1] + rng.sample(range(n), 6)
     got = FQ12.to_ints(e[:, :, torch.as_tensor(sample, device=device)])
     for lane, g in zip(sample, got):
-        want = H.pairing(P_pts[lane], Q_pts[lane])
-        if g != want:
-            raise AssertionError(f"pairing lane {lane} differs from the host")
+        if g != H.pairing(P_pts[lane], Q_pts[lane]):
+            raise AssertionError(f"{path}: lane {lane} differs from the host")
     total = FQ12.to_ints(_product_reduce(e, axis=0))[0]
     if total != gt_power(sum(x * y for x, y in zip(a, b))):
-        raise AssertionError("GT product of all pairing lanes is wrong")
-    print(f"[pairing] {BATCH} pairs: {secs:.3f} s on the card; lanes "
-          f"{sample} match the host; GT product of all lanes matches",
+        raise AssertionError(f"{path}: GT product of all lanes is wrong")
+    extra = ""
+    if csq is not None:
+        if not bool(FQ12.eq(csq, FQ12.sqr(e), k=2).all()):
+            raise AssertionError(f"{path}: cyclotomic_sqr differs from sqr")
+        extra = "; cyclotomic_sqr of all lanes equals sqr"
+    print(f"[{path}] {n} pairs: {secs:.3f} s on the card; lanes {sample} "
+          f"match the host; GT product of all lanes matches{extra}",
           flush=True)
-    return counts, secs, time.perf_counter() - t0, (P, Q)
+    return counts, secs, time.perf_counter() - t0, (P, Q), (e, a, b)
 
 
-def run_signed(device, mult1, mult2, rng):
-    """Phase 4 main path: signed Miller product at Kp = 2048 + final_exp."""
-    import numpy as np
+def signed_inputs(k, mult1, mult2, rng, device):
+    """Com vectors (2, k) of random multiples, a few at infinity."""
     from groth_sahai_tpu_torch.ops.curve import (g1_affine_from_ints,
                                                  g2_affine_from_ints)
-    from groth_sahai_tpu_torch.models import kernels as MK
-    from groth_sahai_tpu_torch.ops.tower import FQ12
-    k = K_SIGNED
-    sa = [[rng.randrange(1, len(mult1) + 1) for _ in range(k)] for _ in range(2)]
-    sb = [[rng.randrange(1, len(mult2) + 1) for _ in range(k)] for _ in range(2)]
-    sa[0][k // 2] = 0                              # an infinity commitment
-    mask = np.array([rng.random() < 0.5 for _ in range(k)], dtype=bool)
+    sa = [[rng.randrange(1, len(mult1) + 1) for _ in range(k)]
+          for _ in range(2)]
+    sb = [[rng.randrange(1, len(mult2) + 1) for _ in range(k)]
+          for _ in range(2)]
+    sa[0][k // 2] = 0                              # infinity commitments
+    sb[1][k // 3] = 0
 
     def com(pts_of, scal, from_ints):
-        flat = [None if s == 0 else pts_of[s - 1] for row in scal for s in row]
-        x, y, inf = from_ints(flat, device=device)
+        flat_pts = [None if v == 0 else pts_of[v - 1]
+                    for row in scal for v in row]
+        x, y, inf = from_ints(flat_pts, device=device)
         shape = lambda t: t.reshape(t.shape[:-1] + (2, k))
         return (shape(x), shape(y), inf.reshape(2, k))
 
-    com1 = com(mult1, sa, g1_affine_from_ints)
-    com2 = com(mult2, sb, g2_affine_from_ints)
+    return (com(mult1, sa, g1_affine_from_ints),
+            com(mult2, sb, g2_affine_from_ints), sa, sb)
+
+
+def run_signed(path, k, mask, device, mult1, mult2, rng):
+    """signed-2048 and signed-1024: `miller_product_signed` + `final_exp`;
+    each (i, j) entry against e(G1, G2)^(sum_k +-a_ik b_jk), and the whole
+    (2, 2) result through `comt_eq` against the host's entries."""
+    from groth_sahai_tpu_torch.models import commit_group as CG
+    from groth_sahai_tpu_torch.models import kernels as MK
+    from groth_sahai_tpu_torch.ops.tower import FQ12
+    com1, com2, sa, sb = signed_inputs(k, mult1, mult2, rng, device)
     sync()
 
     reset_counts()
@@ -383,17 +514,80 @@ def run_signed(device, mult1, mult2, rng):
 
     t0 = time.perf_counter()
     if tuple(out.shape) != (25, 12, 2, 2):
-        raise AssertionError(f"signed product shape {tuple(out.shape)}")
+        raise AssertionError(f"{path}: shape {tuple(out.shape)}")
     got = FQ12.to_ints(out.reshape(25, 12, 4))
-    for i in range(2):
-        for j in range(2):
-            ex = sum((-1 if mask[q] else 1) * sa[i][q] * sb[j][q]
-                     for q in range(k))
-            if got[2 * i + j] != gt_power(ex):
-                raise AssertionError(f"signed product entry ({i},{j}) wrong")
-    print(f"[signed] Kp={MK.next_pow2(k)} (K={k}): {secs:.3f} s on the card; "
-          f"all four entries match the host", flush=True)
+    want = [gt_power(sum((-1 if mask[q] else 1) * sa[i][q] * sb[j][q]
+                         for q in range(k)))
+            for i in range(2) for j in range(2)]
+    for ij, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            raise AssertionError(f"{path}: entry {divmod(ij, 2)} is wrong")
+    host = FQ12.from_ints(want, device=out.device).reshape(25, 12, 2, 2)
+    if not bool(CG.comt_eq(out, host)):
+        raise AssertionError(f"{path}: comt_eq against the host is false")
+    changed = FQ12.from_ints(want[:3] + [want[0]], device=out.device)
+    if bool(CG.comt_eq(out, changed.reshape(25, 12, 2, 2))):
+        raise AssertionError(f"{path}: comt_eq holds on a changed entry")
+    print(f"[{path}] Kp={MK.next_pow2(k)} (K={k}): {secs:.3f} s on the "
+          f"card; all four entries match the host; comt_eq true, and false "
+          f"with one entry changed", flush=True)
     return counts, secs, time.perf_counter() - t0, (com1, com2, mask)
+
+
+def run_gt_exp(device, pair_out, rng):
+    """gt-exp-4096: `gt_exp` on (1024, 2, 2) with one 255-bit rho per
+    equation broadcast over (2, 2) (batch.py:206), then on (1024) lanes
+    (batch.py:210). Part 1's bases are pairing-4096's GT outputs; part 2's
+    are those of lanes 0..1023 with raw Miller outputs (not in GT, as the
+    batch verifier's ratios are not) in eight lanes."""
+    import torch
+    from groth_sahai_tpu_torch.ops import bls12_381 as C
+    from groth_sahai_tpu_torch.ops.fp import FR
+    from groth_sahai_tpu_torch.ops.pairing import gt_exp, _product_reduce
+    from groth_sahai_tpu_torch.ops.tower import FQ12
+    from groth_sahai_tpu_torch.utils import hostcrypto as H
+    e, a, b = pair_out
+    n = EQUATIONS
+    rho = [rng.getrandbits(255) for _ in range(n)]
+    rho_t = edge_limbs(rho, FR.n, device)
+    base1 = e.reshape(25, 12, n, 2, 2)
+    g1 = (C.G1_GEN_X, C.G1_GEN_Y)
+    g2 = (C.G2_GEN_X, C.G2_GEN_Y)
+    raw_lanes = list(range(0, n, max(1, n // 8)))
+    raw = [H.miller_loop(H.g1_mul(g1, 3 + i), H.g2_mul(g2, 5 + i))
+           for i in range(len(raw_lanes))]
+    base2 = e[:, :, :n].clone()
+    base2[:, :, raw_lanes] = FQ12.from_ints(raw, device=device)
+    sync()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out1 = gt_exp(base1, rho_t.reshape(FR.n, n, 1, 1))
+    out2 = gt_exp(base2, rho_t)
+    sync()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+
+    t0 = time.perf_counter()
+    if tuple(out1.shape) != (25, 12, n, 2, 2) or \
+            tuple(out2.shape) != (25, 12, n):
+        raise AssertionError("gt-exp-4096: output shapes")
+    total = FQ12.to_ints(_product_reduce(out1.reshape(25, 12, 4 * n)))[0]
+    ex = sum(x * y * rho[i // 4] for i, (x, y) in enumerate(zip(a, b)))
+    if total != gt_power(ex):
+        raise AssertionError("gt-exp-4096: the product of all (n, 2, 2) "
+                             "lanes is wrong")
+    sample = raw_lanes + [1, n - 1] + rng.sample(range(n), 4)
+    bases = FQ12.to_ints(base2[:, :, sample])
+    got = FQ12.to_ints(out2[:, :, sample])
+    for lane, bv, g in zip(sample, bases, got):
+        if g != H.f12_pow(bv, rho[lane]):
+            raise AssertionError(f"gt-exp-4096: lane {lane} of the ({n}) "
+                                 f"call differs from the host")
+    print(f"[gt-exp-4096] ({n}, 2, 2) and ({n}): {secs:.3f} s on the "
+          f"card; product of all {4 * n} lanes matches; lanes {sample} (raw "
+          f"Miller outputs at {raw_lanes}) match the host", flush=True)
+    return counts, secs, time.perf_counter() - t0, (base1, base2, rho_t)
 
 
 # ----------------------------------------------------------------- phase 5
@@ -404,12 +598,14 @@ def bound_ms(name: str, lanes: int, args) -> tuple:
     16-bit limb). Operations: 16x16-bit products, one 32-bit multiply-add
     each -- CIOS 2n^2 per Montgomery product, n^2 for a schoolbook product
     or a reduction; an Fq12 product is 66 Montgomery products (54 Karatsuba
-    + 12 post-reductions), a cyclotomic square 30 (18 + 12). The chains
-    count what this exponent needs: a square per bit, a product per set
-    bit."""
+    + 12 post-reductions), a cyclotomic square 30 (18 + 12), a Miller
+    doubling iteration 176 (66 for f^2, 49 for the point step, 4 to scale
+    the line, 57 for the sparse product), an addition iteration 126 (65 +
+    4 + 57). The chains count what this input needs: a square per bit, a
+    product per set bit (for f12_pow_dyn, each lane's own scalar bits)."""
     from groth_sahai_tpu_torch.ops import cuda_fp as K
     from groth_sahai_tpu_torch.ops import cuda_tower as CT
-    from groth_sahai_tpu_torch.ops.fp import FQ
+    from groth_sahai_tpu_torch.ops.fp import FQ, FR
     n = FQ.n
     mont = 2 * n * n
     if name == "pow_const":
@@ -418,11 +614,19 @@ def bound_ms(name: str, lanes: int, args) -> tuple:
     elif name == "cyc_pow":
         e = args[-1]
         products = (CT.CYC_POW_NBITS * 30 + bin(e).count("1") * 66) * mont
+    elif name == "f12_pow_dyn":
+        s = args[-1].expand((FR.n,) + args[0].shape[2:]).reshape(FR.n, -1)
+        set_bits = sum(int(((s >> b) & 1).sum()) for b in range(16))
+        products = (CT.POW_DYN_NBITS * 66 + set_bits * 66 / lanes) * mont
     else:
         products = {"mont_mul": mont, "mul_wide": n * n, "redc": n * n,
-                    "fq12_mul": 66 * mont}[name]
+                    "fq12_mul": 66 * mont, "cyc_sqr": 30 * mont,
+                    "miller_iter_dbl": 176 * mont,
+                    "miller_iter_add": 126 * mont}[name]
     limbs = {"mont_mul": 3 * n, "mul_wide": 4 * n + 1, "redc": 3 * n + 1,
-             "pow_const": 2 * n, "fq12_mul": 36 * n, "cyc_pow": 24 * n}[name]
+             "pow_const": 2 * n, "fq12_mul": 36 * n, "cyc_pow": 24 * n,
+             "cyc_sqr": 24 * n, "miller_iter_dbl": 38 * n,
+             "miller_iter_add": 42 * n, "f12_pow_dyn": 24 * n + FR.n}[name]
     t_bytes = limbs * 8 * lanes / PEAK_BYTES_PER_S * 1e3
     t_ops = products * lanes / PEAK_IMAD_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -441,7 +645,7 @@ def kernel_report(worst, timing, counts, by_path):
         if err != 0:
             raise AssertionError(f"{name} differs from its plain version "
                                  f"at the timing shape")
-        slow = name in ("pow_const", "cyc_pow")
+        slow = name in ("pow_const", "cyc_pow", "f12_pow_dyn")
         ms = device_ms(lambda: kern(*args), 3 if slow else 20, name)
         wrapper_ms = time_ms(lambda: kern(*args), 3 if slow else 20)
         plain_ms = time_ms(lambda: plain(*args), 1 if slow else 5)
@@ -455,7 +659,7 @@ def kernel_report(worst, timing, counts, by_path):
             "library_ms": None, "lanes": lanes, "wrapper_ms": wrapper_ms,
             "launches_by_path": {path: c[name] for path, c in by_path.items()},
         })
-        print(f"[report] {name:9s} lanes={lanes:6d} device {ms:.4f} ms per "
+        print(f"[report] {name:15s} lanes={lanes:6d} device {ms:.4f} ms per "
               f"launch (wrapper {wrapper_ms:.4f} ms per call, plain "
               f"{plain_ms:.4f} ms), bound {bound:.5f} ms by {by}", flush=True)
     return rows
@@ -464,7 +668,10 @@ def kernel_report(worst, timing, counts, by_path):
 def profile_path(path: str, fn):
     """Where the time of one run of a path goes: device time by kernel
     (torch.profiler), the ported kernels' share, the launch count and the
-    device's busy share of the wall time (profiler on)."""
+    device's busy share of the wall time (profiler on). Where the profiler
+    records no kernel (on the H100 it records none of gt-exp-4096's few
+    long launches, with or without a traced warm-up run), the run's time
+    by CUDA events instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     sync()
@@ -476,8 +683,10 @@ def profile_path(path: str, fn):
     rows = [(e.key, e.count, e.self_device_time_total)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     if not rows:
-        print(f"[profile] {path}: device time not measured (the profiler "
-              f"recorded no CUDA kernels)", flush=True)
+        ms = time_ms(fn, 1)
+        print(f"[profile] {path}: the profiler recorded no CUDA kernels; "
+              f"one run takes {ms:.3f} ms by CUDA events (device launches "
+              f"not measured)", flush=True)
         return
     busy = sum(t for _, _, t in rows)
     ported = {}
@@ -498,6 +707,66 @@ def profile_path(path: str, fn):
                 for k, c, t in sorted(rows, key=lambda r: -r[2])[:8]],
     }
     print("[profile] " + json.dumps(summary), flush=True)
+
+
+def signed_mask(k: int, rhs: int, rng):
+    """numpy bool (k,): the verifier's lhs terms then `rhs` conjugated rhs
+    terms; rhs = 0 gives a random mask."""
+    import numpy as np
+    if rhs:
+        return np.array([False] * (k - rhs) + [True] * rhs)
+    return np.array([rng.random() < 0.5 for _ in range(k)], dtype=bool)
+
+
+def run_paths(device, mult1, mult2, rng, phases):
+    """Phase 3: the five paths. Returns (launch counts by path, a callable
+    re-running each path for its profile, pairing-4096's outputs)."""
+    from groth_sahai_tpu_torch.models import kernels as MK
+    from groth_sahai_tpu_torch.ops.pairing import gt_exp, pairing
+    from groth_sahai_tpu_torch.ops.tower import FQ12
+    by_path, runs = {}, {}
+    for path, n in (("pairing-8192", BATCH), ("pairing-4096", FUSED)):
+        c, phases[path], phases[path + "_checks"], pq, out = run_pairing(
+            path, n, device, mult1, mult2, rng)
+        by_path[path] = c
+        runs[path] = (lambda pq=pq, n=n: FQ12.cyclotomic_sqr(pairing(*pq))
+                      if n <= FUSED else pairing(*pq))
+        if n == FUSED:
+            pair4096 = out
+    for path, k, rhs in (("signed-2048", K_SIGNED, 0),
+                         ("signed-1024", K_PPE, K_PPE_RHS)):
+        c, phases[path], phases[path + "_checks"], coms = run_signed(
+            path, k, signed_mask(k, rhs, rng), device, mult1, mult2, rng)
+        by_path[path] = c
+        runs[path] = lambda coms=coms: MK.final_exp(
+            MK.miller_product_signed(*coms))
+    c, phases["gt-exp-4096"], phases["gt-exp-4096_checks"], g = run_gt_exp(
+        device, pair4096, rng)
+    by_path["gt-exp-4096"] = c
+    runs["gt-exp-4096"] = lambda: (gt_exp(g[0], g[2].reshape(
+        g[2].shape[0], EQUATIONS, 1, 1)), gt_exp(g[1], g[2]))
+    return by_path, runs, pair4096
+
+
+def check_counts(by_path):
+    """Every kernel the reference takes on a path launched on it, the
+    fused kernels not on the paths above their cap, the Miller iterations
+    exactly 63 + 5 times and f12_pow_dyn once per gt_exp call."""
+    for path, counts in by_path.items():
+        print(f"[report] launches on {path}: {json.dumps(counts)}",
+              flush=True)
+        need, never = PATH_KERNELS[path]
+        idle = [k for k in need if counts[k] == 0]
+        if idle:
+            raise AssertionError(f"kernels never launched on {path}: {idle}")
+        stray = [k for k in never if counts[k] != 0]
+        if stray:
+            raise AssertionError(f"kernels launched on {path} that the "
+                                 f"reference does not take there: {stray}")
+    for (path, name), want in EXACT.items():
+        if by_path[path][name] != want:
+            raise AssertionError(f"{name} launched {by_path[path][name]} "
+                                 f"times on {path}, not {want}")
 
 
 def main() -> int:
@@ -544,30 +813,18 @@ def main() -> int:
         mult1, mult2 = host_multiples(BATCH)
         phases["host_inputs"] = time.perf_counter() - t0
 
-        c_pair, phases["pairing"], phases["pairing_checks"], pq = run_pairing(
-            device, mult1, mult2, rng)
-        c_signed, phases["signed"], phases["signed_checks"], coms = run_signed(
-            device, mult1, mult2, rng)
-        by_path = {"pairing": c_pair, "signed": c_signed}
-        for path, counts in by_path.items():
-            print(f"[report] launches on the {path} path: {counts}",
-                  flush=True)
-            idle = [k for k in PATH_KERNELS[path] if counts[k] == 0]
-            if idle:
-                raise AssertionError(f"kernels never launched on the {path} "
-                                     f"path: {idle}")
-        total = {k: c_pair[k] + c_signed[k] for k in c_pair}
+        by_path, runs, pair4096 = run_paths(device, mult1, mult2, rng,
+                                            phases)
+        check_counts(by_path)
+        total = {k: sum(c[k] for c in by_path.values()) for k in ORIGIN}
 
         t0 = time.perf_counter()
         rows = kernel_report(worst, timing, total, by_path)
         phases["report"] = time.perf_counter() - t0
 
-        from groth_sahai_tpu_torch.models import kernels as MK
-        from groth_sahai_tpu_torch.ops.pairing import pairing
         t0 = time.perf_counter()
-        profile_path("pairing", lambda: pairing(*pq))
-        profile_path("signed", lambda: MK.final_exp(
-            MK.miller_product_signed(*coms)))
+        for path, fn in runs.items():
+            profile_path(path, fn)
         phases["profile"] = time.perf_counter() - t0
         print("[phases] " + json.dumps({k: round(v, 3)
                                         for k, v in phases.items()}),

@@ -15,8 +15,8 @@
 //   * mont_mul needs value(a) * value(b) <= 2^16 p^2; output < 2p;
 //   * redc needs t < p R (2N+1 exact limbs); output < 2p;
 //   * sub(a, b, kp) = sub_k(a, b, k) = a - b + k p needs bound(b) <= k p.
-// add, sub, sub_k and dbl read limb j before they write it, so `out` may
-// be one of the inputs.
+// add, sub, sub_k, neg_k, mul_small, select and dbl read limb j before
+// they write it, so `out` may be one of the inputs.
 // The Montgomery output is the unique (t + M p) / R with M = -t p^-1 mod R
 // and no final subtraction, so it equals the plain version limb for limb.
 #pragma once
@@ -111,6 +111,45 @@ __device__ __forceinline__ void sub_k(const uint32_t (&a)[N],
     out[j] = v & kMask;
     c = v >> kW;
   }
+}
+
+// k p - a in one chain, k p formed as in sub_k (pallas_reg.neg); bound(a)
+// <= k p. Result bound: k p.
+template <int N>
+__device__ __forceinline__ void neg_k(const uint32_t (&a)[N], uint32_t k,
+                                      const uint32_t (&p)[N],
+                                      uint32_t (&out)[N]) {
+  uint32_t c = 1;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const uint32_t v = k * p[j] + kMask - a[j] + c;
+    out[j] = v & kMask;
+    c = v >> kW;
+  }
+}
+
+// a k for a small k <= 512 (pallas_reg.mul_small): a column is at most
+// 512 (2^16 - 1) plus a carry < 2^10, so < 2^26. Bound: k bound(a).
+template <int N>
+__device__ __forceinline__ void mul_small(const uint32_t (&a)[N], uint32_t k,
+                                          uint32_t (&out)[N]) {
+  uint32_t c = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const uint32_t v = a[j] * k + c;
+    out[j] = v & kMask;
+    c = v >> kW;
+  }
+}
+
+// mask ? a : b (pallas_reg.select); one lane's mask, so no divergence
+// inside the limb loop.
+template <int N>
+__device__ __forceinline__ void select(bool mask, const uint32_t (&a)[N],
+                                       const uint32_t (&b)[N],
+                                       uint32_t (&out)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) out[j] = mask ? a[j] : b[j];
 }
 
 // 2 a with exact limbs. Bound: 2 bound(a).

@@ -1,7 +1,8 @@
 // In-thread Fq2 / Fq6 / Fq12 formulas of the fused tower kernels.
 //
 // Port of the in-kernel tower math of groth_sahai_tpu/ops/pallas_tower.py
-// (_f2_mul, _f6_mul, _f12_mul, _f12_post_red, _cyc_sqr_body), over the
+// (_f2_mul, _f6_mul, _f12_mul, _f12_post_red, _cyc_sqr_body, and the
+// Miller-iteration bodies at the end of this file), over the
 // field library field.cuh. One thread owns one Fq12 element: 12 Fq
 // coefficients of 25 limbs, indexed [i][j][u] for w^i v^j u^u (the port's
 // coefficient index 6i + 2j + u).
@@ -225,6 +226,192 @@ __device__ __noinline__ void cyc_sqr_red(const FieldQ& f, const Fp12& a,
   comb_b(xi_c1, a[1][0], out[1][0]);          // 3 xi C1 + 2 c3
   comb_b(tb[0], a[1][1], out[1][1]);          // 3 A1 + 2 c4
   comb_b(tb[1], a[1][2], out[1][2]);          // 3 B1 + 2 c5
+  post_red(f, out);
+}
+
+// ------------------------------------------- the Miller-iteration bodies
+//
+// pallas_tower.py's in-kernel helpers of the fused Miller iterations
+// (_f12_sqr_red, _f12_select, _f2_mulred, _f2_sqrred, _f2_mul_fq,
+// _dbl_step_body, _add_step_body, _sparse_line_mul), step for step: the
+// same k p offsets and the same post-reductions, so the limbs equal the
+// reference's. Every Fq2 product of the point steps is post-reduced to
+// < 2p (mont-by-one), as in the reference.
+
+// a a post-reduced to < 2p (_f12_sqr_red); input coefficients < 2p.
+__device__ __forceinline__ void f12_sqr_red(const FieldQ& f, const Fp12& a,
+                                            Fp12& c) {
+  f12_mul_red(f, a, a, c);
+}
+
+// mask ? a : b, coefficientwise (_f12_select).
+__device__ __forceinline__ void f12_select(bool mask, const Fp12& a,
+                                           const Fp12& b, Fp12& c) {
+  const uint32_t* x = &a[0][0][0][0];
+  const uint32_t* y = &b[0][0][0][0];
+  uint32_t* z = &c[0][0][0][0];
+#pragma unroll 1
+  for (int i = 0; i < 12 * N; ++i) z[i] = mask ? x[i] : y[i];
+}
+
+// Fq2 product, both components post-reduced to < 2p (_f2_mulred; the
+// square _f2_sqrred is f2_mulred(a, a)).
+__device__ __noinline__ void f2_mulred(const FieldQ& f, const Fp2& a,
+                                       const Fp2& b, Fp2& c) {
+  f2_mul(f, a, b, c);
+  mm(f, c[0], f.one, c[0]);
+  mm(f, c[1], f.one, c[1]);
+}
+
+// Fq2 times an Fq scalar s (both < 8p): componentwise mont, out < 2p
+// (_f2_mul_fq).
+__device__ __forceinline__ void f2_mul_fq(const FieldQ& f, const Fp2& a,
+                                          const Fp& s, Fp2& c) {
+  mm(f, a[0], s, c[0]);
+  mm(f, a[1], s, c[1]);
+}
+
+// 3 a = 2 a + a, per component.
+__device__ __forceinline__ void f2_triple(const Fp2& a, Fp2& c) {
+  dbl<N>(a[0], c[0]);
+  add<N>(c[0], a[0], c[0]);
+  dbl<N>(a[1], c[1]);
+  add<N>(c[1], a[1], c[1]);
+}
+
+// k p - a per component; bound(a) <= k p.
+__device__ __forceinline__ void f2_neg(const FieldQ& f, const Fp2& a,
+                                       uint32_t k, Fp2& c) {
+  neg_k<N>(a[0], k, f.p, c[0]);
+  neg_k<N>(a[1], k, f.p, c[1]);
+}
+
+// Projective doubling step (_dbl_step_body): R = (X, Y, Z) with X, Z < 2p,
+// Y < 10p -> (X3 < 2p, Y3 < 10p, Z3 < 2p) and the line (l0 = i < 50p,
+// l1 = 3j < 6p, l2 = -h < 8p). tinv = 1/2 in Montgomery form. 49
+// Montgomery products (nine post-reduced Fq2 products of 5, two Fq2 x Fq
+// of 2). Outputs must not alias inputs.
+__device__ __noinline__ void dbl_step_body(const FieldQ& f, const Fp& tinv,
+                                           const Fp2& X, const Fp2& Y,
+                                           const Fp2& Z, Fp2& X3, Fp2& Y3,
+                                           Fp2& Z3, Fp2& l0, Fp2& l1,
+                                           Fp2& l2) {
+  Fp2 a, b, c, j, e, ff, g, h, t, u;
+  // a = X Y / 2 ; b = Y^2 ; c = Z^2 ; j = X^2
+  f2_mulred(f, X, Y, t);
+  f2_mul_fq(f, t, tinv, a);                    // < 2p
+  f2_mulred(f, Y, Y, b);
+  f2_mulred(f, Z, Z, c);
+  f2_mulred(f, X, X, j);
+  // e = 3c * b_twist = 12 xi(c)  (b = 4(u+1))
+  sub_k<N>(c[0], c[1], 2, f.p, t[0]);
+  mul_small<N>(t[0], 12, e[0]);
+  add<N>(c[0], c[1], t[1]);
+  mul_small<N>(t[1], 12, e[1]);               // < 48p
+  f2_triple(e, ff);                            // f = 3e < 144p
+  f2_add(b, ff, t);
+  f2_mul_fq(f, t, tinv, g);                    // (2p+144p) tinv mont < 2p
+  f2_add(Y, Z, t);
+  f2_mulred(f, t, t, u);
+  f2_add(b, c, t);
+  f2_sub(f, u, t, 4, h);                       // < 6p
+  f2_sub(f, e, b, 2, l0);                      // i < 50p
+  f2_mulred(f, e, e, u);                       // e2 < 2p
+  f2_sub(f, b, ff, 144, t);
+  f2_mulred(f, a, t, X3);                      // < 2p
+  f2_mulred(f, g, g, t);
+  f2_triple(u, e);                             // 3 e2
+  f2_sub(f, t, e, 8, Y3);                      // < 10p
+  f2_mulred(f, b, h, Z3);
+  f2_triple(j, l1);                            // 3j < 6p
+  f2_neg(f, h, 8, l2);                         // -h < 8p
+}
+
+// Mixed addition step with affine Q (_add_step_body): R with Y < 10p ->
+// (X3, Y3 < 4p, Z3) and the line (j < 4p, -theta < 16p, lambda < 4p).
+// 65 Montgomery products (13 post-reduced Fq2 products). Outputs must not
+// alias inputs.
+__device__ __noinline__ void add_step_body(const FieldQ& f, const Fp2& X,
+                                           const Fp2& Y, const Fp2& Z,
+                                           const Fp2& xq, const Fp2& yq,
+                                           Fp2& X3, Fp2& Y3, Fp2& Z3,
+                                           Fp2& l0, Fp2& l1, Fp2& l2) {
+  Fp2 theta, cc, d, e, ff, g, h, t, u;
+  f2_mulred(f, yq, Z, t);
+  f2_sub(f, Y, t, 2, theta);                   // < 12p (Y < 10p)
+  f2_mulred(f, xq, Z, t);
+  f2_sub(f, X, t, 2, l2);                      // lambda < 4p
+  f2_mulred(f, theta, theta, cc);
+  f2_mulred(f, l2, l2, d);
+  f2_mulred(f, l2, d, e);
+  f2_mulred(f, Z, cc, ff);
+  f2_mulred(f, X, d, g);
+  f2_add(e, ff, t);
+  f2_add(g, g, u);
+  f2_sub(f, t, u, 4, h);                       // < 8p
+  f2_mulred(f, l2, h, X3);
+  f2_mulred(f, e, Z, Z3);
+  f2_mulred(f, e, Y, u);                       // eY
+  f2_sub(f, g, h, 8, t);
+  f2_mulred(f, theta, t, cc);
+  f2_sub(f, cc, u, 2, Y3);                     // < 4p
+  f2_mulred(f, theta, xq, t);
+  f2_mulred(f, l2, yq, u);
+  f2_sub(f, t, u, 2, l0);                      // j < 4p
+  f2_neg(f, theta, 16, l1);                    // -theta < 16p
+}
+
+// (c0 + c1 v + c2 v^2)(a + b v): coefficients < 18p (f6_mul_ab).
+__device__ __noinline__ void f6_mul_ab(const FieldQ& f, const Fp6& c6,
+                                       const Fp2& a, const Fp2& b, Fp6& r) {
+  Fp2 t, w;
+  f2_mul(f, c6[0], a, r[0]);                   // t00
+  f2_mul(f, c6[2], b, t);                      // t21
+  f2_xi(f, t, 6, w);
+  f2_add(r[0], w, r[0]);                       // t00 + xi(t21) < 18p
+  f2_mul(f, c6[1], a, r[1]);                   // t10
+  f2_mul(f, c6[0], b, t);                      // t01
+  f2_add(r[1], t, r[1]);                       // < 12p
+  f2_mul(f, c6[2], a, r[2]);                   // t20
+  f2_mul(f, c6[1], b, t);                      // t11
+  f2_add(r[2], t, r[2]);                       // < 12p
+}
+
+// (c0 + c1 v + c2 v^2)(c v) = (xi(c2 c), c0 c, c1 c): < 12p (f6_mul_cv).
+__device__ __noinline__ void f6_mul_cv(const FieldQ& f, const Fp6& c6,
+                                       const Fp2& c, Fp6& r) {
+  Fp2 t;
+  f2_mul(f, c6[2], c, t);
+  f2_xi(f, t, 6, r[0]);
+  f2_mul(f, c6[0], c, r[1]);
+  f2_mul(f, c6[1], c, r[2]);
+}
+
+// f (la + lb v + lc v w), post-reduced to < 2p (_sparse_line_mul): f < 2p,
+// la < 50p, lb, lc < 2p. 15 Fq2 products (45 Montgomery products) and 12
+// post-reductions; before them out0 < 54p, out1 < 54p. `out` must not be
+// `fv`.
+__device__ __noinline__ void sparse_line_mul(const FieldQ& f, const Fp12& fv,
+                                             const Fp2& la, const Fp2& lb,
+                                             const Fp2& lc, Fp12& out) {
+  Fp6 t0, t1, s, ts;
+  Fp2 w;
+  f6_mul_ab(f, fv[0], la, lb, t0);             // < 18p
+  f6_mul_cv(f, fv[1], lc, t1);                 // < 12p
+#pragma unroll 1
+  for (int j = 0; j < 3; ++j) f2_add(fv[0][j], fv[1][j], s[j]);   // < 4p
+  f2_add(lb, lc, w);
+  f6_mul_ab(f, s, la, w, ts);                  // < 18p
+  // out0 = t0 + v t1 ; v t1 = (xi t1[2], t1[0], t1[1])
+  f2_xi(f, t1[2], 12, w);
+  f2_add(t0[0], w, out[0][0]);                 // < 18p + 36p
+  f2_add(t0[1], t1[0], out[0][1]);
+  f2_add(t0[2], t1[1], out[0][2]);
+#pragma unroll 1
+  for (int j = 0; j < 3; ++j) {
+    f2_sub(f, ts[j], t0[j], 18, w);
+    f2_sub(f, w, t1[j], 18, out[1][j]);        // < 54p
+  }
   post_red(f, out);
 }
 

@@ -1,26 +1,34 @@
-// The fused tower kernels of the port: Hopper (sm_90a) counterparts of two
+// The fused tower kernels of the port: Hopper (sm_90a) counterparts of six
 // Pallas kernels of groth_sahai_tpu/ops/pallas_tower.py.
 //
-//   gs_fq12_mul <- pallas_tower.fq12_mul / fq12_sqr (_fq12_mul_kernel)
-//   gs_cyc_pow  <- pallas_tower.cyc_pow (_cyc_pow_kernel)
+//   gs_fq12_mul        <- pallas_tower.fq12_mul / fq12_sqr (_fq12_mul_kernel)
+//   gs_cyc_pow         <- pallas_tower.cyc_pow (_cyc_pow_kernel)
+//   gs_cyc_sqr         <- pallas_tower.cyc_sqr (_cyc_sqr_kernel)
+//   gs_miller_iter_dbl <- pallas_tower.miller_iter_dbl (_miller_iter_dbl_kernel)
+//   gs_miller_iter_add <- pallas_tower.miller_iter_add (_miller_iter_add_kernel)
+//   gs_f12_pow_dyn     <- pallas_tower.f12_pow_dyn (_f12_pow_dyn_kernel)
 //
-// The reference takes them for batches of at most 4096 lanes; on the
-// verifier's signed Miller product they carry the tree product over the
-// pair axis (4096 lanes down to 4) and the whole final exponentiation on
-// the (2, 2) result.
+// The reference takes them for batches of at most 4096 lanes: on the
+// verifier's signed Miller product at Kp <= 1024 the two iteration kernels
+// run the whole Miller loop (63 + 5 launches), fq12_mul the tree product
+// over the pair axis and the final exponentiation with cyc_pow;
+// f12_pow_dyn is gt_exp, the rho-weighting of randomized batch
+// verification; cyc_sqr is FQ12.cyclotomic_sqr.
 //
 // Work split: one thread per lane, as in fp_kernels.cu; an Fq12 batch is
 // int64 [25, 12, M] (limb i of coefficient c of lane l at (12 i + c) M + l),
-// so the threads of a warp read neighbouring words. Blocks of 32 threads
-// spread the few thousand lanes of these calls over all 132 SMs.
+// an Fq2 batch [25, 2, M], an Fq batch [25, M], Fr scalars [17, M], so the
+// threads of a warp read neighbouring words. Blocks of 32 threads spread the
+// few thousand lanes of these calls over all 132 SMs.
 //
 // What bounds them on the H100: an Fq12 product is 66 Montgomery products
 // (54 Karatsuba + 12 post-reductions, 82,500 16x16-bit multiply-adds) per
-// lane on 7.2 KB of int64 limbs moved, so it is bound by the multiplier;
-// cyc_pow (64 cyclotomic squares of 30 products each, plus a product per
-// set exponent bit) is bound by the multiplier too. The design keeps each
-// Fq12 value in thread-local memory (tower.cuh), so at these small batches
-// the real limit is the latency of one thread's long dependent chain.
+// lane on 7.2 KB of int64 limbs moved, so every kernel here is bound by the
+// multiplier: a doubling iteration is 176 Montgomery products per lane, an
+// addition iteration 126, a cyclotomic square 30, f12_pow_dyn up to
+// 272 x 132. The design keeps each Fq12 value in thread-local memory
+// (tower.cuh), so at these small batches the real limit is the latency of
+// one thread's long dependent chain.
 //
 // Plain C interface for ctypes. Each entry point returns cudaGetLastError()
 // after its launch (0 = success), or -1 for a limb count other than 25.
@@ -100,6 +108,149 @@ cyc_pow_kernel(const __grid_constant__ FieldQ f, const int64_t* a,
   store12(out, m, lane, acc);
 }
 
+__device__ __forceinline__ void load2(const int64_t* src, int64_t m,
+                                      int64_t lane, Fp2& x) {
+#pragma unroll 1
+  for (int u = 0; u < 2; ++u) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      x[u][i] = static_cast<uint32_t>(src[(i * 2 + u) * m + lane]);
+  }
+}
+
+__device__ __forceinline__ void store2(int64_t* dst, int64_t m, int64_t lane,
+                                       const Fp2& x) {
+#pragma unroll 1
+  for (int u = 0; u < 2; ++u) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) dst[(i * 2 + u) * m + lane] = x[u][i];
+  }
+}
+
+__device__ __forceinline__ void load1(const int64_t* src, int64_t m,
+                                      int64_t lane, Fp& x) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = static_cast<uint32_t>(src[i * m + lane]);
+}
+
+// One Granger-Scott cyclotomic square, post-reduced to < 2p; inputs < 2p.
+__global__ void __launch_bounds__(kThreads)
+cyc_sqr_kernel(const __grid_constant__ FieldQ f, const int64_t* a,
+               int64_t* out, int64_t m) {
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (lane >= m) return;
+  Fp12 x, z;
+  load12(a, m, lane, x);
+  cyc_sqr_red(f, x, z);
+  store12(out, m, lane, z);
+}
+
+// An Fq constant of a launch (1/2 in Montgomery form), by value.
+struct FqConst {
+  Fp v;
+};
+
+// One Miller doubling iteration (_miller_iter_dbl_kernel): f <- f^2 *
+// line_{R,R}(P), R <- 2R. f < 2p; R = (X, Y, Z) with X, Z < 2p, Y < 10p;
+// P = (px, py) < p. Outputs: f < 2p and R in the same bounds.
+__global__ void __launch_bounds__(kThreads)
+miller_iter_dbl_kernel(const __grid_constant__ FieldQ f,
+                       const __grid_constant__ FqConst tinv,
+                       const int64_t* fin, const int64_t* xin,
+                       const int64_t* yin, const int64_t* zin,
+                       const int64_t* pxin, const int64_t* pyin,
+                       int64_t* fout, int64_t* xout, int64_t* yout,
+                       int64_t* zout, int64_t m) {
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (lane >= m) return;
+  Fp12 x, fsq;
+  Fp2 X, Y, Z, X3, Y3, Z3, l0, l1, l2, lb, lc;
+  Fp px, py;
+  load12(fin, m, lane, x);
+  load2(xin, m, lane, X);
+  load2(yin, m, lane, Y);
+  load2(zin, m, lane, Z);
+  load1(pxin, m, lane, px);
+  load1(pyin, m, lane, py);
+  f12_sqr_red(f, x, fsq);
+  dbl_step_body(f, tinv.v, X, Y, Z, X3, Y3, Z3, l0, l1, l2);
+  f2_mul_fq(f, l1, px, lb);                    // < 2p
+  f2_mul_fq(f, l2, py, lc);                    // < 2p
+  sparse_line_mul(f, fsq, l0, lb, lc, x);
+  store12(fout, m, lane, x);
+  store2(xout, m, lane, X3);
+  store2(yout, m, lane, Y3);
+  store2(zout, m, lane, Z3);
+}
+
+// One Miller addition iteration (_miller_iter_add_kernel): f <- f *
+// line_{R,Q}(P), R <- R + Q, with Q = (xq, yq) affine.
+__global__ void __launch_bounds__(kThreads)
+miller_iter_add_kernel(const __grid_constant__ FieldQ f, const int64_t* fin,
+                       const int64_t* xin, const int64_t* yin,
+                       const int64_t* zin, const int64_t* xqin,
+                       const int64_t* yqin, const int64_t* pxin,
+                       const int64_t* pyin, int64_t* fout, int64_t* xout,
+                       int64_t* yout, int64_t* zout, int64_t m) {
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (lane >= m) return;
+  Fp12 x, fo;
+  Fp2 X, Y, Z, xq, yq, X3, Y3, Z3, l0, l1, l2, lb, lc;
+  Fp px, py;
+  load12(fin, m, lane, x);
+  load2(xin, m, lane, X);
+  load2(yin, m, lane, Y);
+  load2(zin, m, lane, Z);
+  load2(xqin, m, lane, xq);
+  load2(yqin, m, lane, yq);
+  load1(pxin, m, lane, px);
+  load1(pyin, m, lane, py);
+  add_step_body(f, X, Y, Z, xq, yq, X3, Y3, Z3, l0, l1, l2);
+  f2_mul_fq(f, l1, px, lb);                    // < 2p
+  f2_mul_fq(f, l2, py, lc);                    // < 2p
+  sparse_line_mul(f, x, l0, lb, lc, fo);
+  store12(fout, m, lane, fo);
+  store2(xout, m, lane, X3);
+  store2(yout, m, lane, Y3);
+  store2(zout, m, lane, Z3);
+}
+
+constexpr int kScalarLimbs = 17;               // Fr standard-form limbs
+
+// a^s for a per-lane scalar s of 17 standard-form 16-bit limbs
+// (_f12_pow_dyn_kernel): 272 rounds from the Fq12 one (R mod p in
+// coefficient 0), MSB first, leading zeros included; each round a
+// post-reduced generic square, then, on a set bit, a post-reduced product
+// with a. The reference always multiplies and then selects; on a clear bit
+// the select keeps the square, so skipping the product there gives the
+// same limbs. Lanes of a warp take different bits, so the product
+// diverges; its cost is the warp's busiest lane.
+__global__ void __launch_bounds__(kThreads)
+f12_pow_dyn_kernel(const __grid_constant__ FieldQ f, const int64_t* a,
+                   const int64_t* s, int64_t* out, int64_t m) {
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (lane >= m) return;
+  Fp12 x, acc, t, u;
+  uint32_t sc[kScalarLimbs];
+  load12(a, m, lane, x);
+#pragma unroll
+  for (int i = 0; i < kScalarLimbs; ++i)
+    sc[i] = static_cast<uint32_t>(s[i * m + lane]);
+  uint32_t* w = &acc[0][0][0][0];
+  uint32_t* wu = &u[0][0][0][0];
+#pragma unroll 1
+  for (int i = 0; i < 12 * N; ++i) w[i] = wu[i] = 0;
+  copy(f.one, acc[0][0][0]);
+#pragma unroll 1
+  for (int b = 16 * kScalarLimbs - 1; b >= 0; --b) {
+    f12_sqr_red(f, acc, t);
+    const bool bit = (sc[b >> 4] >> (b & 15)) & 1;
+    if (bit) f12_mul_red(f, t, x, u);
+    f12_select(bit, u, t, acc);
+  }
+  store12(out, m, lane, acc);
+}
+
 unsigned grid_of(int64_t m) {
   return static_cast<unsigned>((m + kThreads - 1) / kThreads);
 }
@@ -125,6 +276,57 @@ int gs_cyc_pow(int nl, const int64_t* a, uint64_t e, int64_t* out, int64_t m,
   cyc_pow_kernel<<<grid_of(m), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       gs::make_field<N>(p, one, n0), a, e, out, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gs_cyc_sqr(int nl, const int64_t* a, int64_t* out, int64_t m,
+               const uint32_t* p, const uint32_t* one, uint32_t n0,
+               void* stream) {
+  if (nl != N) return -1;
+  cyc_sqr_kernel<<<grid_of(m), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      gs::make_field<N>(p, one, n0), a, out, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gs_miller_iter_dbl(int nl, const int64_t* fin, const int64_t* xin,
+                       const int64_t* yin, const int64_t* zin,
+                       const int64_t* px, const int64_t* py, int64_t* fout,
+                       int64_t* xout, int64_t* yout, int64_t* zout,
+                       int64_t m, const uint32_t* p, const uint32_t* one,
+                       const uint32_t* tinv, uint32_t n0, void* stream) {
+  if (nl != N) return -1;
+  FqConst t;
+  for (int j = 0; j < N; ++j) t.v[j] = tinv[j];
+  miller_iter_dbl_kernel<<<grid_of(m), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      gs::make_field<N>(p, one, n0), t, fin, xin, yin, zin, px, py, fout,
+      xout, yout, zout, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gs_miller_iter_add(int nl, const int64_t* fin, const int64_t* xin,
+                       const int64_t* yin, const int64_t* zin,
+                       const int64_t* xq, const int64_t* yq,
+                       const int64_t* px, const int64_t* py, int64_t* fout,
+                       int64_t* xout, int64_t* yout, int64_t* zout,
+                       int64_t m, const uint32_t* p, const uint32_t* one,
+                       uint32_t n0, void* stream) {
+  if (nl != N) return -1;
+  miller_iter_add_kernel<<<grid_of(m), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      gs::make_field<N>(p, one, n0), fin, xin, yin, zin, xq, yq, px, py,
+      fout, xout, yout, zout, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gs_f12_pow_dyn(int nl, int ns, const int64_t* a, const int64_t* s,
+                   int64_t* out, int64_t m, const uint32_t* p,
+                   const uint32_t* one, uint32_t n0, void* stream) {
+  if (nl != N || ns != kScalarLimbs) return -1;
+  f12_pow_dyn_kernel<<<grid_of(m), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      gs::make_field<N>(p, one, n0), a, s, out, m);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,9 +5,16 @@ path. The reference pads every variable-length axis to a power of two so
 that XLA compiles one executable per size bucket; the port keeps the same
 padding (points at infinity contribute the identity to a Miller product),
 so both packages run the same batch shapes, and so take the same kernels
-at each size: at Kp = 2048 the Miller loop runs on 8192 lanes over the
-field kernels, and the tree reduction (from 4096 lanes down) and the final
-exponentiation on (2, 2) take the fused `fq12_mul` and `cyc_pow`.
+at each size. The Miller batch is (2, 2, Kp), 4 Kp lanes:
+
+  * Kp <= 1024 (at most 4096 lanes; `verify` of a PPE with m = n = 334
+    has K = 1006, Kp = 1024): each of the 63 + 5 Miller iterations is one
+    launch of the fused `miller_iter_dbl` / `miller_iter_add`; the tree
+    reduction and the final exponentiation take `fq12_mul` and `cyc_pow`.
+  * Kp >= 2048: the Miller loop runs the lazy tower over the field
+    kernels (`mont_mul`, `mul_wide`, `redc`); the tree reduction from
+    (2, 2, Kp / 2) takes `fq12_mul` once it is at most 4096 lanes, and the
+    final exponentiation on (2, 2) `fq12_mul`, `cyc_pow` and `pow_const`.
 
   * the verifier's five pairing_sum terms plus the rhs fold become ONE
     signed Miller product (`miller_product_signed`) whose conjugation mask

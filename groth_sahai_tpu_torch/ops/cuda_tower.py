@@ -1,30 +1,35 @@
 """Hand-written Hopper kernels of the Fq12 tower, with their plain versions.
 
-The port of two kernels of ``groth_sahai_tpu/ops/pallas_tower.py``, written
+The port of six kernels of ``groth_sahai_tpu/ops/pallas_tower.py``, written
 in CUDA C++ for ``sm_90a`` in ``csrc/tower_kernels.cu`` over the in-thread
 tower formulas ``csrc/tower.cuh`` (on ``csrc/field.cuh``):
 
-  ==========  ============================================  ==================
-  wrapper     replaces (TPU kernel)                         computes
-  ==========  ============================================  ==================
-  fq12_mul    pallas_tower.py:fq12_mul (_fq12_mul_kernel)   a*b, coeffs < 2p
-  fq12_sqr    pallas_tower.py:fq12_sqr (the same kernel)    a*a
-  cyc_pow     pallas_tower.py:cyc_pow (_cyc_pow_kernel)     a^e, e < 2^64
-  ==========  ============================================  ==================
+  ===============  =================================  ========================
+  wrapper          replaces (TPU kernel)              computes
+  ===============  =================================  ========================
+  fq12_mul         pallas_tower.py:fq12_mul           a*b, coeffs < 2p
+  fq12_sqr         pallas_tower.py:fq12_sqr           a*a (fq12_mul's kernel)
+  cyc_pow          pallas_tower.py:cyc_pow            a^e, e < 2^64
+  cyc_sqr          pallas_tower.py:cyc_sqr            Granger-Scott a^2
+  miller_iter_dbl  pallas_tower.py:miller_iter_dbl    f^2 line_RR(P), 2R
+  miller_iter_add  pallas_tower.py:miller_iter_add    f line_RQ(P), R + Q
+  f12_pow_dyn      pallas_tower.py:f12_pow_dyn        a^s, per-lane 272-bit s
+  ===============  =================================  ========================
 
-Both compute in the narrow domain: every Fq product is a Montgomery product
+All compute in the narrow domain: every Fq product is a Montgomery product
 (< 2p), Karatsuba combinations use the reference's k*p offsets, and each
 Fq12 result is post-reduced by a Montgomery product with R mod p. That is
 another redundant form than the tower's lazy (wide-domain) formulas in
-:mod:`.tower`: the same value mod p, not always the same limbs. `FQ12.mul`,
-`FQ12.sqr` and `FQ12.cyclotomic_pow` take these kernels for batches of at
-most 4096 lanes, as the reference does.
+:mod:`.tower`: the same value mod p, not always the same limbs. The tower
+(`FQ12.mul`, `sqr`, `cyclotomic_sqr`, `cyclotomic_pow`) and the pairing
+(`miller_loop`, `gt_exp`) take these kernels for batches of at most 4096
+lanes, as the reference does.
 
 What bounds them on the H100: an Fq12 product is 66 Montgomery products
 per lane (82,500 16x16-bit multiply-adds) against 7.2 KB of int64 limbs
-moved, so both kernels are bound by the multiplier; at the few thousand
-lanes of their calls, one thread per lane leaves most of the card idle and
-each thread's dependent chain sets the time.
+moved, so every kernel here is bound by the multiplier; at the few
+thousand lanes of their calls, one thread per lane leaves most of the card
+idle and each thread's dependent chain sets the time.
 
 Dispatch rule: a CPU tensor runs the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its launches in
@@ -39,7 +44,7 @@ import torch
 
 from .cuda_build import KernelLibrary, check, host_words, lanes, on_cpu, stream
 from .cuda_fp import mont_mul_plain
-from .fp import FQ
+from .fp import FQ, FR
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,9 +54,16 @@ LIBRARY = KernelLibrary("gs_tower", "tower_kernels.cu",
                         ["tower.cuh", "field.cuh"], {
     "gs_fq12_mul": [_I, _P, _P, _P, _I64, _P, _P, _U32, _P],
     "gs_cyc_pow": [_I, _P, ctypes.c_uint64, _P, _I64, _P, _P, _U32, _P],
+    "gs_cyc_sqr": [_I, _P, _P, _I64, _P, _P, _U32, _P],
+    "gs_miller_iter_dbl": [_I] + [_P] * 10 + [_I64, _P, _P, _P, _U32, _P],
+    "gs_miller_iter_add": [_I] + [_P] * 12 + [_I64, _P, _P, _U32, _P],
+    "gs_f12_pow_dyn": [_I, _I, _P, _P, _P, _I64, _P, _P, _U32, _P],
 })
 
 CYC_POW_NBITS = 64     # the kernel's fixed schedule: e < 2^64
+# 1/2 in Montgomery form: the doubling step's constant (the reference's
+# `two_inv_int`, as the kernel receives it).
+TWO_INV_MONT = (FQ.p + 1) // 2 * FQ.r_mod_p % FQ.p
 
 
 # ---------------------------------------------------------------- plain versions
@@ -172,6 +184,142 @@ def cyc_pow_plain(a, e: int):
     return acc
 
 
+# Miller iterations: the reference's `_dbl_step_body`, `_add_step_body`,
+# `_f2_mul_fq` and `_sparse_line_mul`, with every Fq2 product of the point
+# steps post-reduced (`_f2_mulred`). Independent products of one step are
+# stacked into one Montgomery product; each value is the kernel's integer.
+
+def _f2_mulred(a, b):
+    """Fq2 product, both components post-reduced to < 2p."""
+    return _post_red(_f2_mul(a, b))
+
+
+def _f2_mul_fq(a, s):
+    """Fq2 values (nl, 2, *S) times Fq scalars (nl, *T), T a suffix of S or
+    empty: componentwise Montgomery products, < 2p."""
+    s = s.reshape((s.shape[0],) + (1,) * (a.ndim - s.ndim) + s.shape[1:])
+    return _mm(a, s.expand(a.shape))
+
+
+def _triple(a):
+    return FQ.add(FQ.double(a), a)
+
+
+def _dbl_step_plain(X, Y, Z, tinv):
+    """Projective doubling step: (X3 < 2p, Y3 < 10p, Z3 < 2p) and the line
+    (l0 = i < 50p, l1 = 3j < 6p, l2 = -h < 8p); Y < 10p, X, Z < 2p."""
+    st = lambda *xs: torch.stack(xs, 2)
+    yz = FQ.add(Y, Z)
+    t = _f2_mulred(st(X, Y, Z, X, yz), st(Y, Y, Z, X, yz))
+    xy, b, c, j, yz2 = t.unbind(2)
+    # e = 3c * b_twist = 12 xi(c) < 48p ; f = 3e < 144p
+    e = FQ.mul_small(_xi(c, 2), 12)
+    f = _triple(e)
+    ag = _f2_mul_fq(st(xy, FQ.add(b, f)), tinv)    # a = XY/2, g = (b+f)/2
+    a, g = ag.unbind(2)
+    h = FQ.sub(yz2, FQ.add(b, c), k=4)                # < 6p
+    l0 = FQ.sub(e, b, k=2)                            # i < 50p
+    t = _f2_mulred(st(e, a, g, b), st(e, FQ.sub(b, f, k=144), g, h))
+    e2, X3, g2, Z3 = t.unbind(2)
+    Y3 = FQ.sub(g2, _triple(e2), k=8)                 # < 10p
+    return (X3, Y3, Z3), (l0, _triple(j), FQ.neg(h, k=8))
+
+
+def _add_step_plain(X, Y, Z, xq, yq):
+    """Mixed addition step with affine Q: (X3, Y3 < 4p, Z3) and the line
+    (j < 4p, -theta < 16p, lambda < 4p); Y < 10p."""
+    st = lambda *xs: torch.stack(xs, 2)
+    t = _f2_mulred(st(yq, xq), st(Z, Z))
+    theta = FQ.sub(Y, t[:, :, 0], k=2)                # < 12p
+    lam = FQ.sub(X, t[:, :, 1], k=2)                  # < 4p
+    cc, d = _f2_mulred(st(theta, lam), st(theta, lam)).unbind(2)
+    e, f, g = _f2_mulred(st(lam, Z, X), st(d, cc, d)).unbind(2)
+    h = FQ.sub(FQ.add(e, f), FQ.double(g), k=4)       # < 8p
+    t = _f2_mulred(st(lam, e, e, theta, theta, lam),
+                   st(h, Z, Y, FQ.sub(g, h, k=8), xq, yq))
+    X3, Z3, eY, tgh, txq, lyq = t.unbind(2)
+    Y3 = FQ.sub(tgh, eY, k=2)                         # < 4p
+    j = FQ.sub(txq, lyq, k=2)                         # < 4p
+    return (X3, Y3, Z3), (j, FQ.neg(theta, k=16), lam)
+
+
+def _sparse_line_mul_plain(f, la, lb, lc):
+    """f (la + lb v + lc v w), post-reduced to < 2p: f < 2p, la < 50p,
+    lb, lc < 2p; its 15 Fq2 products as one stack."""
+    fn = _as_nested(f)                                # (nl, 2, 3, 2, *B)
+    f0, f1 = fn[:, 0].movedim(1, 2), fn[:, 1].movedim(1, 2)   # (nl, 2, 3, *B)
+    s = FQ.add(f0, f1)                                # < 4p
+    w = FQ.add(lb, lc)
+    rep = lambda x: x.unsqueeze(2).expand(x.shape[:2] + (3,) + x.shape[2:])
+    t = _f2_mul(torch.cat([f0, f0, f1, s, s], 2),
+                torch.cat([rep(la), rep(lb), rep(lc), rep(la), rep(w)], 2))
+
+    def ab(pa, pb):
+        """(c0 + c1 v + c2 v^2)(a + b v) from c_j a and c_j b: < 18p."""
+        return FQ.add(pa, torch.stack([_xi(pb[:, :, 2], 6), pb[:, :, 0],
+                                       pb[:, :, 1]], 2))
+
+    t0 = ab(t[:, :, 0:3], t[:, :, 3:6])
+    cv = t[:, :, 6:9]                                 # c_j c: (c v) product
+    t1 = torch.stack([_xi(cv[:, :, 2], 6), cv[:, :, 0], cv[:, :, 1]], 2)
+    ts = ab(t[:, :, 9:12], t[:, :, 12:15])
+    out0 = FQ.add(t0, torch.stack([_xi(t1[:, :, 2], 12), t1[:, :, 0],
+                                   t1[:, :, 1]], 2))  # < 54p
+    out1 = FQ.sub(FQ.sub(ts, t0, k=18), t1, k=18)     # < 54p
+    c = torch.stack([out0, out1], 1).movedim(2, 3)    # (nl, 2, 3, 2, *B)
+    return _post_red(c).reshape((c.shape[0], 12) + c.shape[4:])
+
+
+def _line_scale(l1, l2, px, py):
+    """(l1 px, l2 py): the line's v and v w coefficients at P, < 2p."""
+    lbc = _f2_mul_fq(torch.stack([l1, l2], 2), torch.stack([px, py], 1))
+    return lbc[:, :, 0], lbc[:, :, 1]
+
+
+def _tinv(device):
+    return FQ._const(TWO_INV_MONT, 1, device)
+
+
+def miller_iter_dbl_plain(f, R, px, py):
+    """(f^2 line_{R,R}(P), 2R): f < 2p; R = (X, Y, Z), X, Z < 2p, Y < 10p."""
+    fsq = fq12_mul_plain(f, f)
+    R3, (l0, l1, l2) = _dbl_step_plain(*R, _tinv(f.device))
+    lb, lc = _line_scale(l1, l2, px, py)
+    return _sparse_line_mul_plain(fsq, l0, lb, lc), R3
+
+
+def miller_iter_add_plain(f, R, Q, px, py):
+    """(f line_{R,Q}(P), R + Q) with Q = (xq, yq) affine; Y < 10p."""
+    R3, (l0, l1, l2) = _add_step_plain(*R, *Q)
+    lb, lc = _line_scale(l1, l2, px, py)
+    return _sparse_line_mul_plain(f, l0, lb, lc), R3
+
+
+POW_DYN_NBITS = 16 * FR.n   # f12_pow_dyn's schedule: all 272 scalar bits
+
+
+def f12_pow_dyn_round(acc, a, bit):
+    """One round of the power: (acc^2 a if bit else acc^2), post-reduced --
+    the reference's order (square, product, select)."""
+    sq = fq12_mul_plain(acc, acc)
+    return torch.where(bit[None, None], fq12_mul_plain(sq, a), sq)
+
+
+def scalar_bit(s, b: int):
+    """Bit b of standard-form scalar limbs s (17, *batch) as a bool batch."""
+    return ((s[b // 16] >> (b % 16)) & 1).bool()
+
+
+def f12_pow_dyn_plain(a, s):
+    """a^s with per-lane scalars s (17 standard-form Fr limbs, broadcast to
+    a's batch): 272 rounds from one, MSB first, leading zeros included."""
+    s = s.expand((FR.n,) + a.shape[2:])
+    acc = _cyc_pow_one(a.shape[2:], a.device)
+    for b in range(POW_DYN_NBITS - 1, -1, -1):
+        acc = f12_pow_dyn_round(acc, a, scalar_bit(s, b))
+    return acc
+
+
 # --------------------------------------------------------------------- wrappers
 
 def _rows12(x, what: str):
@@ -226,8 +374,115 @@ def cyc_pow(a, e: int):
     return out.reshape(a.shape)
 
 
-KERNELS = (fq12_mul, cyc_pow)
-PLAIN = {fq12_mul: fq12_mul_plain, cyc_pow: cyc_pow_plain}
+def cyc_sqr(a):
+    """One Granger-Scott cyclotomic square as one launch, post-reduced to
+    < 2p; inputs < 2p.
+
+    Replaces pallas_tower.py:cyc_sqr (_cyc_sqr_kernel).
+    """
+    if on_cpu(a):
+        return cyc_sqr_plain(a)
+    a2 = _rows12(a, "cyc_sqr a")
+    out = torch.empty_like(a2)
+    m = a2.shape[1]
+    if m:
+        check(LIBRARY.get().gs_cyc_sqr(
+            FQ.n, a2.data_ptr(), out.data_ptr(), m, host_words(FQ, FQ.p),
+            host_words(FQ, FQ.r_mod_p), FQ.n0, stream(a2)), "cyc_sqr", FQ.n)
+        cyc_sqr.launches += 1
+    return out.reshape(a.shape)
+
+
+def _broadcast_lanes(f, fq2s, fqs):
+    """Expand an Fq12 batch, Fq2 values and Fq values to one batch shape."""
+    batch = torch.broadcast_shapes(f.shape[2:], *(x.shape[2:] for x in fq2s),
+                                   *(x.shape[1:] for x in fqs))
+    ex = lambda x, lead: x.expand(x.shape[:lead] + batch)
+    return (ex(f, 2), [ex(x, 2) for x in fq2s], [ex(x, 1) for x in fqs],
+            batch)
+
+
+def _miller_launch(name, f, fq2s, fqs, extra):
+    """Launch one Miller-iteration kernel; returns (f', (X3, Y3, Z3))."""
+    f, fq2s, fqs, batch = _broadcast_lanes(f, fq2s, fqs)
+    n = FQ.n
+    f2 = _rows12(f, name + " f")
+    ins = ([f2] + [lanes(x, n, f"{name} Fq2").reshape(2 * n, -1)
+                   for x in fq2s] + [lanes(x, n, f"{name} Fq") for x in fqs])
+    m = f2.shape[1]
+    fo = torch.empty_like(f2)
+    rs = [torch.empty((2 * n, m), dtype=torch.int64, device=f2.device)
+          for _ in range(3)]
+    if m:
+        fn = getattr(LIBRARY.get(), "gs_" + name)
+        check(fn(n, *(x.data_ptr() for x in ins + [fo] + rs), m,
+                 host_words(FQ, FQ.p), host_words(FQ, FQ.r_mod_p), *extra,
+                 FQ.n0, stream(f2)), name, n)
+    shape2 = (n, 2) + tuple(batch)
+    return (fo.reshape(f.shape), tuple(r.reshape(shape2) for r in rs)), m
+
+
+def miller_iter_dbl(f, R, px, py):
+    """One Miller doubling iteration as one launch: (f^2 line_{R,R}(P), 2R).
+
+    Replaces pallas_tower.py:miller_iter_dbl (_miller_iter_dbl_kernel).
+    f (25, 12, *batch) < 2p; R = (X, Y, Z) Fq2 (25, 2, *batch) with
+    X, Z < 2p, Y < 10p; P = (px, py) Fq (25, *batch) affine. Batch shapes
+    broadcast; the kernel takes contiguous copies.
+    """
+    if on_cpu(f, *R, px, py):
+        return miller_iter_dbl_plain(f, R, px, py)
+    out, m = _miller_launch("miller_iter_dbl", f, list(R), [px, py],
+                            [host_words(FQ, TWO_INV_MONT)])
+    if m:
+        miller_iter_dbl.launches += 1
+    return out
+
+
+def miller_iter_add(f, R, Q, px, py):
+    """One Miller addition iteration as one launch: (f line_{R,Q}(P), R + Q).
+
+    Replaces pallas_tower.py:miller_iter_add (_miller_iter_add_kernel).
+    As `miller_iter_dbl`, with Q = (xq, yq) affine Fq2 (25, 2, *batch).
+    """
+    if on_cpu(f, *R, *Q, px, py):
+        return miller_iter_add_plain(f, R, Q, px, py)
+    out, m = _miller_launch("miller_iter_add", f, list(R) + list(Q),
+                            [px, py], [])
+    if m:
+        miller_iter_add.launches += 1
+    return out
+
+
+def f12_pow_dyn(a, s):
+    """a^s with per-lane scalars as one launch.
+
+    Replaces pallas_tower.py:f12_pow_dyn (_f12_pow_dyn_kernel). a
+    (25, 12, *batch) < 2p, any Fq12 (not only the cyclotomic subgroup);
+    s (17, ...) standard-form Fr limbs, broadcast to the batch; all 272
+    bits are read, canonical or not.
+    """
+    if on_cpu(a, s):
+        return f12_pow_dyn_plain(a, s)
+    a2 = _rows12(a, "f12_pow_dyn a")
+    s2 = lanes(s.expand((FR.n,) + a.shape[2:]), FR.n, "f12_pow_dyn s")
+    out = torch.empty_like(a2)
+    m = a2.shape[1]
+    if m:
+        check(LIBRARY.get().gs_f12_pow_dyn(
+            FQ.n, FR.n, a2.data_ptr(), s2.data_ptr(), out.data_ptr(), m,
+            host_words(FQ, FQ.p), host_words(FQ, FQ.r_mod_p), FQ.n0,
+            stream(a2)), "f12_pow_dyn", FQ.n)
+        f12_pow_dyn.launches += 1
+    return out.reshape(a.shape)
+
+
+KERNELS = (fq12_mul, cyc_pow, cyc_sqr, miller_iter_dbl, miller_iter_add,
+           f12_pow_dyn)
+PLAIN = {fq12_mul: fq12_mul_plain, cyc_pow: cyc_pow_plain,
+         cyc_sqr: cyc_sqr_plain, miller_iter_dbl: miller_iter_dbl_plain,
+         miller_iter_add: miller_iter_add_plain,
+         f12_pow_dyn: f12_pow_dyn_plain}
 for _k in KERNELS:
     _k.launches = 0
 

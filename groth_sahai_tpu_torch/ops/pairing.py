@@ -6,7 +6,10 @@ schedule and bounds:
   * The Miller loop runs over the 63 bits of |x| after the first: the
     doubling step every iteration, the addition step on the five set bits
     (|x| has Hamming weight 6). The schedule is static, so it is a Python
-    loop here (the reference's `lax.scan` + `lax.cond`).
+    loop here (the reference's `lax.scan` + `lax.cond`). At most
+    `FUSED_MAX_LANES` lanes, each iteration is one launch of a fused
+    Miller-iteration kernel (f^2 line(P) and the point update together),
+    as in the reference; above, the lazy tower formulas.
   * Line evaluations build sparse Fq12 elements; G1 arguments enter as
     affine coordinate tensors, G2 as homogeneous projective over Fq2.
   * `multi_miller` multiplies Miller outputs across an axis BEFORE the
@@ -22,11 +25,15 @@ the identity (matches `E::pairing(0, q) = 1`).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .fp import FQ
 from .tower import FQ2, FQ12
 from . import bls12_381 as C
+from . import cuda_tower as CT
+from . import tower as T
 
 _TWO_INV_INT = (C.P + 1) // 2
 _B_TWIST_INTS = C.B_G2          # 4(u+1)
@@ -130,19 +137,27 @@ def miller_loop(p_aff, q_aff):
     px, py, p_inf = p_aff
     batch = tuple(p_inf.shape)
     dev = px.device
-    two_inv = _bcast_const(FQ.from_int(_TWO_INV_INT, device=dev), len(batch))
-    b3 = _bcast_const(FQ2.from_int_pair(*_B_TWIST_INTS, device=dev),
-                      len(batch))
-
     R = (q_aff[0], q_aff[1], FQ2.one(batch, device=dev))
     f = FQ12.one(batch, device=dev)
-    for do_add in _X_BITS[1:]:
-        f = FQ12.sqr(f)
-        R, line = _dbl_step(R, two_inv, b3)
-        f = _ell(f, line, px, py, batch)
-        if do_add:
-            R, line = _add_step(R, q_aff)
+    if math.prod(batch) <= T.FUSED_MAX_LANES:
+        # one fused launch per iteration (the reference's
+        # pallas_tower.miller_iter_dbl / miller_iter_add)
+        for do_add in _X_BITS[1:]:
+            f, R = CT.miller_iter_dbl(f, R, px, py)
+            if do_add:
+                f, R = CT.miller_iter_add(f, R, q_aff[:2], px, py)
+    else:
+        two_inv = _bcast_const(FQ.from_int(_TWO_INV_INT, device=dev),
+                               len(batch))
+        b3 = _bcast_const(FQ2.from_int_pair(*_B_TWIST_INTS, device=dev),
+                          len(batch))
+        for do_add in _X_BITS[1:]:
+            f = FQ12.sqr(f)
+            R, line = _dbl_step(R, two_inv, b3)
             f = _ell(f, line, px, py, batch)
+            if do_add:
+                R, line = _add_step(R, q_aff)
+                f = _ell(f, line, px, py, batch)
     # x < 0: conjugate
     f = FQ12.conj(f)
     # infinity on either side -> identity
@@ -208,6 +223,26 @@ def gt_mul(a, b):
 def gt_inv_cyclotomic(a):
     """Inverse in GT (= conjugate, since GT is in the cyclotomic subgroup)."""
     return FQ12.conj(a)
+
+
+def gt_exp(a, scalar_limbs):
+    """a^s for batched Fr scalars (standard-form limbs int64[17, *batch],
+    broadcast to a's batch).
+
+    0 < lanes <= `FUSED_MAX_LANES`: one launch of the fused power kernel
+    (the reference's pallas_tower.f12_pow_dyn). Otherwise a square and a
+    product per bit with a select, over all 16 * n_limbs bits, MSB first.
+    """
+    batch = a.shape[2:]
+    if 0 < math.prod(batch) <= T.FUSED_MAX_LANES:
+        return CT.f12_pow_dyn(a, scalar_limbs)
+    acc = FQ12.one(batch, device=a.device)
+    for i in range(scalar_limbs.shape[0] * 16 - 1, -1, -1):
+        acc = FQ12.sqr(acc)
+        acc2 = FQ12.mul(acc, a)
+        acc = torch.where(CT.scalar_bit(scalar_limbs, i)[None, None], acc2,
+                          acc)
+    return acc
 
 
 def gt_eq(a, b):

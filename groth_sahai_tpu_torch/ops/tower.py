@@ -17,12 +17,11 @@ The port of ``groth_sahai_tpu/ops/tower.py``:
   each output coefficient is Montgomery-reduced exactly once (`redc`).
   Wide-value bounds (in units of p^2) are tracked via static k2 offsets,
   with the reference's numbers.
-* Fused kernels: as in the reference, `FQ12.mul`, `FQ12.sqr` and
-  `FQ12.cyclotomic_pow` take one launch of a fused tower kernel
-  (:mod:`.cuda_tower`) for batches of at most `FUSED_MAX_LANES` lanes.
-  Those kernels reduce in the narrow domain, so their limbs are another
-  redundant form of the same value. `cyclotomic_sqr` stays on the lazy
-  formulas at every size: the reference's fused `cyc_sqr` is not ported.
+* Fused kernels: as in the reference, `FQ12.mul`, `FQ12.sqr`,
+  `FQ12.cyclotomic_sqr` and `FQ12.cyclotomic_pow` take one launch of a
+  fused tower kernel (:mod:`.cuda_tower`) for batches of at most
+  `FUSED_MAX_LANES` lanes. Those kernels reduce in the narrow domain, so
+  their limbs are another redundant form of the same value.
 """
 
 from __future__ import annotations
@@ -39,7 +38,8 @@ from . import cuda_tower as CT
 _stack = torch.stack
 
 # The reference runs its fused Pallas tower kernels on batches of at most
-# this many lanes (ops/tower.py `FQ12.mul`, `sqr`, `cyclotomic_pow`).
+# this many lanes (ops/tower.py `FQ12.mul`, `sqr`, `cyclotomic_sqr`,
+# `cyclotomic_pow`; ops/pairing.py `miller_loop`, `gt_exp`).
 FUSED_MAX_LANES = 4096
 
 
@@ -360,7 +360,14 @@ class _Fq12:
     # ---- cyclotomic subgroup ops (for the final exponentiation) ----
 
     def cyclotomic_sqr(self, a):
-        """Granger-Scott squaring; valid when a^(p^6+1) = 1 (after easy part)."""
+        """Granger-Scott squaring; valid when a^(p^6+1) = 1 (after easy part).
+
+        At most `FUSED_MAX_LANES` lanes: one launch of the fused kernel
+        (inputs < 2p, output < 2p); larger batches run the lazy formulas
+        below.
+        """
+        if _fused(a):
+            return CT.cyc_sqr(a)
         F2 = FQ2
         batch = a.shape[2:]
         ap = torch.movedim(a.reshape((FQ.n, 6, 2) + batch), 2, 1)

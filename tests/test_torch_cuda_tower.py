@@ -27,7 +27,7 @@ from groth_sahai_tpu_torch.ops.tower import FQ12
 from groth_sahai_tpu_torch.utils import hostcrypto as H
 from groth_sahai_tpu_torch.utils.convert import limbs_from_numpy, to_numpy
 
-from .test_torch_tower import rand_coeffs
+from .test_torch_tower import one_thread, rand_coeffs  # noqa: F401
 
 NL = FQ.n
 

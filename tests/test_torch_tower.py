@@ -1,10 +1,10 @@
 """The port's Fq2/Fq6/Fq12 tower against the JAX package's.
 
 On the CPU the JAX tower takes its non-Pallas branch: the lazy formulas
-that both packages run above 4096 lanes. The port's `FQ12.mul`, `sqr` and
-`cyclotomic_pow` take its fused kernels (their plain versions on the CPU)
-at these small batches, as the reference does on its TPU, so each of those
-tests runs the port twice: with `FUSED_MAX_LANES` set to 0, the lazy
+that both packages run above 4096 lanes. The port's `FQ12.mul`, `sqr`,
+`cyclotomic_sqr` and `cyclotomic_pow` take its fused kernels (their plain
+versions on the CPU) at these small batches, as the reference does on its
+TPU, so each of those tests runs the port twice: with `FUSED_MAX_LANES` set to 0, the lazy
 branch must agree with the JAX package in every limb; as shipped, the
 fused branch must give the same values (exact equality after reduction to
 [0, p): the fused kernels leave another redundant form). Inputs are made
@@ -15,6 +15,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from groth_sahai_tpu.ops.tower import FQ2 as JFQ2, FQ6 as JFQ6, FQ12 as JFQ12
 
@@ -25,6 +26,17 @@ from groth_sahai_tpu_torch.ops.limbs import ints_to_limbs
 from groth_sahai_tpu_torch.ops.tower import FQ2, FQ6, FQ12
 from groth_sahai_tpu_torch.utils import hostcrypto as H
 from groth_sahai_tpu_torch.utils.convert import limbs_from_numpy, to_numpy
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread (autouse here and where it is imported): these
+    tensors are a few lanes wide, and many threads make each small op
+    several times slower."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def rand_coeffs(seed, dim, lanes, bound=C.P):
@@ -111,11 +123,27 @@ def test_fq12_frobenius_matches_jax(power):
          jax.jit(lambda x: JFQ12.frobenius(x, power))(ja))
 
 
-def test_cyclotomic_sqr_matches_jax():
+def test_cyclotomic_sqr_matches_jax(monkeypatch):
     a, ja = both(cyclotomic_elems(3))
-    same(FQ12.cyclotomic_sqr(a), jax.jit(JFQ12.cyclotomic_sqr)(ja))
+    want = jax.jit(JFQ12.cyclotomic_sqr)(ja)
+    fused = FQ12.cyclotomic_sqr(a)                  # fused kernel
+    same_values(fused, want)
     # and it is a squaring
-    assert FQ12.to_ints(FQ12.cyclotomic_sqr(a)) == FQ12.to_ints(FQ12.sqr(a))
+    assert FQ12.to_ints(fused) == FQ12.to_ints(FQ12.sqr(a))
+    monkeypatch.setattr(T, "FUSED_MAX_LANES", 0)
+    lazy = FQ12.cyclotomic_sqr(a)                   # lazy branch
+    same(lazy, want)
+    assert FQ12.to_ints(lazy) == FQ12.to_ints(FQ12.sqr(a))
+
+
+def test_cyclotomic_sqr_fused_chain_is_squaring():
+    """The fused square's output (< 2p) is its own valid input: four
+    squarings in a row give a^16 on GT elements, against the host."""
+    a, _ = both(cyclotomic_elems(2))
+    x = a
+    for _ in range(4):
+        x = FQ12.cyclotomic_sqr(x)
+    assert FQ12.to_ints(x) == [H.f12_pow(v, 16) for v in FQ12.to_ints(a)]
 
 
 def test_cyclotomic_pow_x_matches_jax(monkeypatch):
