@@ -10,10 +10,11 @@ Phases (any failure exits non-zero and prints no result line):
                 build time, the compiler's resource report and the card's
                 name and power limit;
   2. kernels -- each of the ten kernels against its plain PyTorch version on
-                the card, bit-exact, at the shapes the paths give it: the
-                field kernels at Fq width over the pairing's stacks (16384,
+                the card, bit-exact, at the paths' main shapes: the field
+                kernels at Fq width over the pairing's stacks (16384,
                 442368, 98304 and 8192 lanes) and at Fr width over 8192
-                lanes; fq12_mul over 4096 and 4 lanes, cyc_pow over 4; the
+                lanes; fq12_mul over 4096 and 4 lanes, cyc_pow over 4096
+                and 4 for the final exponentiation's three exponents; the
                 Miller iterations and cyc_sqr over 4096, f12_pow_dyn over
                 4096 and 1024. Seeded random inputs plus edge lanes at the
                 top of each kernel's input bound (0, 1, p-1, 2p-1,
@@ -42,9 +43,15 @@ Phases (any failure exits non-zero and prints no result line):
                   pairing-4096; the product of all lanes against
                   e(G1, G2)^(sum a_i b_i rho_i)), then on (1024) lanes with
                   raw Miller outputs (not in GT) among them;
+                each counted run records the shape (and exponent) of every
+                launch, and every kernel is then held bit-exact, with
+                inputs made as in phase 2, at each recorded shape that
+                phase 2 did not cover (the lazy tower's stacks, the tree
+                product's halvings, the final exponentiation's inverse);
   4. report  -- launch counts of each path (every kernel the reference takes
-                there must have run on it; the Miller iterations exactly
-                63 + 5 times), each kernel's device time per launch
+                there must have run on it, each launch recorded with its
+                shape; the Miller iterations exactly 63 + 5 times), each
+                kernel's device time per launch
                 (profiler) at its path shape beside its bound, the plain
                 version's time (CUDA events), one `kernels` JSON line, a
                 profile of each path, then the result line.
@@ -54,6 +61,8 @@ Imports nothing of JAX or of the JAX package. Needs one card.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import random
 import subprocess
@@ -219,10 +228,10 @@ def field_inputs(field, lanes: int, gen, device):
     assert all(x * y <= (p * p) << 16 for x, y in zip(edge_a, edge_b))
     edge_t = [p * field.R_int - 1, 0, 1, p, (p * p) << 16, p * field.R_int // 2,
               field.R_int, field.R_int - 1]
-    k = len(edge_a)
-    a[:, :k] = edge_limbs(edge_a, n, device)
-    b[:, :k] = edge_limbs(edge_b, n, device)
-    t[:, :k] = edge_limbs(edge_t, 2 * n + 1, device)
+    k = min(len(edge_a), lanes)
+    a[:, :k] = edge_limbs(edge_a[:k], n, device)
+    b[:, :k] = edge_limbs(edge_b[:k], n, device)
+    t[:, :k] = edge_limbs(edge_t[:k], 2 * n + 1, device)
     return a, b, t
 
 
@@ -238,20 +247,23 @@ def fq12_inputs(lanes: int, bound_p: int, gen, device, edges):
     return x
 
 
-# The shapes that carry each kernel on the paths, in lanes: at 8192 pairs
-# mont_mul runs over an Fq2 batch (FQ2.mul_fq in the Miller steps),
-# mul_wide over the Fq12 product's 54 stacked Fq products, redc over its 12
-# coefficients, pow_const over the Fq inverse of final_exp; on the signed
-# product fq12_mul takes the first tree-reduction step, (2, 2, 1024) = 4096
-# lanes, and cyc_pow the final exponentiation's (2, 2) = 4 lanes; the
-# Miller iterations run on (2, 2, 1024) = 4096 lanes on signed-1024 and on
-# 4096 on pairing-4096, cyc_sqr on pairing-4096's outputs, f12_pow_dyn on
-# (1024, 2, 2) = 4096 lanes (and on 1024).
+# The shape that carries most of each kernel's work on the paths, in
+# lanes, at which the report times it: at 8192 pairs mont_mul runs over an
+# Fq2 batch (FQ2.mul_fq in the Miller steps), mul_wide over the Fq12
+# product's 54 stacked Fq products, redc over its 12 coefficients,
+# pow_const over the Fq inverse of final_exp; on the signed product
+# fq12_mul takes the first tree-reduction step, (2, 2, 1024) = 4096 lanes;
+# cyc_pow runs pairing-4096's final exponentiation over 4096 lanes (and the
+# signed products' over (2, 2) = 4, timed too); the Miller iterations run
+# on (2, 2, 1024) = 4096 lanes on signed-1024 and on 4096 on pairing-4096,
+# cyc_sqr on pairing-4096's outputs, f12_pow_dyn on (1024, 2, 2) = 4096
+# lanes (and on 1024). The paths' other shapes are recorded as they run.
 PATH_LANES = {"mont_mul": 2 * BATCH, "mul_wide": 54 * BATCH,
               "redc": 12 * BATCH, "pow_const": BATCH,
-              "fq12_mul": 4096, "cyc_pow": 4, "cyc_sqr": FUSED,
+              "fq12_mul": 4096, "cyc_pow": FUSED, "cyc_sqr": FUSED,
               "miller_iter_dbl": FUSED, "miller_iter_add": FUSED,
               "f12_pow_dyn": FUSED}
+ALSO_TIMED = {"cyc_pow": 4}
 
 
 def fq2_inputs(lanes: int, bound_p: int, gen, device, edges):
@@ -280,9 +292,9 @@ def miller_inputs(lanes: int, gen, device):
     P = tuple(fq2_inputs(lanes, 1, gen, device, [p - 1, 0])[:, 0]
               for _ in range(2))
     for x in P:
-        x[:, 2] = 0
+        x[:, 2:3] = 0
     for x in Q:
-        x[:, :, 3] = 0
+        x[:, :, 3:4] = 0
     return f, R, Q, P
 
 
@@ -292,47 +304,47 @@ def scalar_inputs(lanes: int, gen, device):
     from groth_sahai_tpu_torch.ops import bls12_381 as C
     from groth_sahai_tpu_torch.ops.fp import FR
     s = rand_limbs(FR.n, lanes, 255, gen, device)
-    s[:, :4] = edge_limbs([0, C.R - 1, (1 << 272) - 1, 1], FR.n, device)
+    edges = [0, C.R - 1, (1 << 272) - 1, 1][:lanes]
+    s[:, :len(edges)] = edge_limbs(edges, FR.n, device)
     return s
 
 
-def make_cases(device):
-    """(name, field, lanes, args) for every kernel at its path shape (Fq),
-    the field kernels at Fr width and the tower kernels at 4 lanes too."""
-    import torch
+def case_args(name, field, lanes, e, gen, device):
+    """The arguments of one kernel call over `lanes` lanes: seeded random
+    values plus the edge lanes; `e` is the exponent of pow_const and
+    cyc_pow."""
+    p = field.p
+    if name in FIELD:
+        a, b, t = field_inputs(field, lanes, gen, device)
+        return {"mont_mul": (field, a, b), "mul_wide": (field, a, b),
+                "redc": (field, t), "pow_const": (field, a, e)}[name]
+    if name == "fq12_mul":
+        top = 32 * p - 1                 # bound(a) bound(b) <= 1024 p^2
+        return (fq12_inputs(lanes, 32, gen, device, [top, top, 0, p - 1]),
+                fq12_inputs(lanes, 32, gen, device, [top, 1, top, p - 1]))
+    if name in MILLER:
+        f, R, Q, P = miller_inputs(lanes, gen, device)
+        return (f, R, *P) if name == "miller_iter_dbl" else (f, R, Q, *P)
+    a = fq12_inputs(lanes, 2, gen, device, [2 * p - 1, 0, 2 * p - 1])
+    return {"cyc_pow": (a, e), "cyc_sqr": (a,),
+            "f12_pow_dyn": (a, scalar_inputs(lanes, gen, device))}[name]
+
+
+def phase2_shapes():
+    """(kernel, field, lanes, exponent) of every phase-2 check: each kernel
+    at its path shapes (Fq), the field kernels at Fr width too."""
     from groth_sahai_tpu_torch.ops import bls12_381 as C
     from groth_sahai_tpu_torch.ops.fp import FQ, FR
-    gen = torch.Generator().manual_seed(SEED)
-    cases = []
-    for field, lanes in ((FQ, None), (FR, BATCH)):
-        for name in ("mont_mul", "mul_wide", "redc", "pow_const"):
-            m = lanes or PATH_LANES[name]
-            a, b, t = field_inputs(field, m, gen, device)
-            args = {"mont_mul": (a, b), "mul_wide": (a, b), "redc": (t,),
-                    "pow_const": (a, field.p - 2)}[name]
-            cases.append((name, field, m, (field,) + args))
-    p = FQ.p
-    top = 32 * p - 1                     # bound(a) bound(b) <= 1024 p^2
-    for m in (PATH_LANES["fq12_mul"], 4):
-        a = fq12_inputs(m, 32, gen, device, [top, top, 0, p - 1])
-        b = fq12_inputs(m, 32, gen, device, [top, 1, top, p - 1])
-        cases.append(("fq12_mul", FQ, m, (a, b)))
-    v_abs = abs(C.X) + 1
-    for e in (v_abs // 3, v_abs, abs(C.X)):  # the final exp's exponents
-        a = fq12_inputs(PATH_LANES["cyc_pow"], 2, gen, device,
-                        [2 * p - 1, 0])
-        cases.append(("cyc_pow", FQ, PATH_LANES["cyc_pow"], (a, e)))
-    m = FUSED
-    a = fq12_inputs(m, 2, gen, device, [2 * p - 1, 0])
-    cases.append(("cyc_sqr", FQ, m, (a,)))
-    f, R, Q, P = miller_inputs(m, gen, device)
-    cases.append(("miller_iter_dbl", FQ, m, (f, R, *P)))
-    cases.append(("miller_iter_add", FQ, m, (f, R, Q, *P)))
-    for m in (FUSED, EQUATIONS):
-        a = fq12_inputs(m, 2, gen, device, [2 * p - 1, 0, 2 * p - 1])
-        cases.append(("f12_pow_dyn", FQ, m,
-                      (a, scalar_inputs(m, gen, device))))
-    return cases
+    v_abs = abs(C.X) + 1                 # the final exp's three exponents
+    shapes = [(name, field, PATH_LANES[name] if field is FQ else BATCH,
+               field.p - 2 if name == "pow_const" else None)
+              for field in (FQ, FR) for name in FIELD]
+    shapes += [("fq12_mul", FQ, m, None) for m in (PATH_LANES["fq12_mul"], 4)]
+    shapes += [("cyc_pow", FQ, m, e) for m in (FUSED, ALSO_TIMED["cyc_pow"])
+               for e in (v_abs // 3, v_abs, abs(C.X))]
+    shapes += [(name, FQ, FUSED, None) for name in ("cyc_sqr",) + MILLER]
+    shapes += [("f12_pow_dyn", FQ, m, None) for m in (FUSED, EQUATIONS)]
+    return shapes
 
 
 def plain_of(name):
@@ -362,25 +374,37 @@ def compare(name, args):
     return err
 
 
+def check_shape(name, field, lanes, e, gen, device, worst, tag):
+    """Kernel against plain version on fresh inputs of one shape; returns
+    the arguments."""
+    args = case_args(name, field, lanes, e, gen, device)
+    err = compare(name, args)
+    worst[name] = max(worst[name], err)
+    print(f"[{tag}] {field.name} {name:15s} lanes={lanes:6d} "
+          f"max_abs_err={err}", flush=True)
+    if err != 0:
+        raise AssertionError(f"{name} on {field.name} over {lanes} lanes "
+                             f"differs from its plain version")
+    return args
+
+
 def check_kernels(device):
     """Phase 2: every kernel bit-exact against its plain version at its
-    path's shapes. Returns (worst error by kernel, the timing cases)."""
+    path's main shapes. Returns (worst error by kernel, the timing cases by
+    (kernel, lanes), the shapes checked)."""
+    import torch
     from groth_sahai_tpu_torch.ops import cuda_fp as K
     from groth_sahai_tpu_torch.ops.fp import FQ
+    gen = torch.Generator().manual_seed(SEED)
     worst = {name: 0 for name in ORIGIN}
-    timing = {}
-    for name, field, lanes, args in make_cases(device):
-        err = compare(name, args)
-        worst[name] = max(worst[name], err)
-        print(f"[kernels] {field.name} {name:15s} lanes={lanes:6d} "
-              f"max_abs_err={err}", flush=True)
-        if err != 0:
-            raise AssertionError(f"{name} on {field.name} differs from "
-                                 f"its plain version")
-        if field is FQ and lanes == PATH_LANES[name]:
-            timing[name] = args
+    timing, checked = {}, set()
+    for name, field, lanes, e in phase2_shapes():
+        args = check_shape(name, field, lanes, e, gen, device, worst,
+                           "kernels")
+        checked.add((name, field.name, lanes, e))
+        if field is FQ:
+            timing[name, lanes] = args
     # the Fermat inverse really inverts: a * a^(p-2) == 1 on random lanes
-    import torch
     gen = torch.Generator().manual_seed(SEED + 1)
     fq_a = field_inputs(FQ, 256, gen, device)[0][:, 8:]
     prod = FQ.normalize(FQ.mul(FQ.normalize(fq_a, k=256),
@@ -388,7 +412,70 @@ def check_kernels(device):
     one = FQ.normalize(FQ.one((fq_a.shape[1],), device=device))
     if not bool((prod == one).all()):
         raise AssertionError("pow_const(a, p-2) is not the inverse of a")
-    return worst, timing
+    return worst, timing, checked
+
+
+@contextlib.contextmanager
+def recording(shapes):
+    """While inside, every call of a kernel's wrapper through the port's
+    modules that launches adds one to shapes[(kernel, field name, lanes,
+    exponent)]. The modules that call the wrappers (fp, tower, pairing,
+    ...) see a copy of `cuda_fp` and `cuda_tower` whose wrappers record;
+    the wrappers themselves and their counts stay as they are."""
+    import types
+    from groth_sahai_tpu_torch.ops import cuda_fp as K, cuda_tower as CT
+    from groth_sahai_tpu_torch.ops.fp import FQ
+
+    def shim(kern, lead):
+        def call(*args):
+            out = kern(*args)
+            lanes = flat(out)[0][(0,) * lead].numel()
+            if lanes:
+                field = args[0] if lead == 1 else FQ
+                e = args[-1] if isinstance(args[-1], int) else None
+                shapes[kern.__name__, field.name, lanes, e] += 1
+            return out
+        return call
+
+    proxies = []
+    for module, lead in ((K, 1), (CT, 2)):
+        proxy = types.ModuleType(module.__name__)
+        proxy.__dict__.update(vars(module))
+        for kern in module.KERNELS:
+            setattr(proxy, kern.__name__, shim(kern, lead))
+        proxies.append((module, proxy))
+    saved = []
+    for mod in list(sys.modules.values()):
+        name = getattr(mod, "__name__", "")
+        if not name.startswith("groth_sahai_tpu_torch.") or \
+                name == K.__package__:
+            continue
+        for attr, val in list(vars(mod).items()):
+            for module, proxy in proxies:
+                if val is module:
+                    saved.append((mod, attr, val))
+                    setattr(mod, attr, proxy)
+    try:
+        yield
+    finally:
+        for mod, attr, val in saved:
+            setattr(mod, attr, val)
+
+
+def check_path_shapes(device, shapes_by_path, checked, worst):
+    """Every kernel bit-exact against its plain version at each shape the
+    paths launched it with that phase 2 did not check."""
+    import torch
+    from groth_sahai_tpu_torch.ops.fp import FQ, FR
+    fields = {FQ.name: FQ, FR.name: FR}
+    gen = torch.Generator().manual_seed(SEED + 2)
+    todo = sorted({key for shapes in shapes_by_path.values()
+                   for key in shapes} - checked, key=str)
+    for name, field, lanes, e in todo:
+        check_shape(name, fields[field], lanes, e, gen, device, worst,
+                    "shapes")
+        checked.add((name, field, lanes, e))
+    return len(todo)
 
 
 # ------------------------------------------------------------------ phase 3
@@ -426,10 +513,11 @@ def pairing_inputs(n: int, mult1, mult2, rng):
     return a, b, P, Q
 
 
-def run_pairing(path, n, device, mult1, mult2, rng):
+def run_pairing(path, n, device, mult1, mult2, rng, shapes):
     """pairing-8192 and pairing-4096: `pairing(P, Q)` over n pairs (and, at
     n <= 4096, `FQ12.cyclotomic_sqr` of the outputs, inside the counted
-    run). Returns (counts, seconds, checks seconds, inputs, outputs)."""
+    run, whose launch shapes go to `shapes`). Returns (counts, seconds,
+    checks seconds, inputs, outputs)."""
     import torch
     from groth_sahai_tpu_torch.ops.curve import (g1_affine_from_ints,
                                                  g2_affine_from_ints)
@@ -442,12 +530,13 @@ def run_pairing(path, n, device, mult1, mult2, rng):
     sync()
 
     reset_counts()
-    t0 = time.perf_counter()
-    e = pairing(P, Q)
-    sync()
-    secs = time.perf_counter() - t0
-    csq = FQ12.cyclotomic_sqr(e) if n <= FUSED_MAX_LANES else None
-    sync()
+    with recording(shapes):
+        t0 = time.perf_counter()
+        e = pairing(P, Q)
+        sync()
+        secs = time.perf_counter() - t0
+        csq = FQ12.cyclotomic_sqr(e) if n <= FUSED_MAX_LANES else None
+        sync()
     counts = read_counts()
 
     t0 = time.perf_counter()
@@ -494,10 +583,11 @@ def signed_inputs(k, mult1, mult2, rng, device):
             com(mult2, sb, g2_affine_from_ints), sa, sb)
 
 
-def run_signed(path, k, mask, device, mult1, mult2, rng):
-    """signed-2048 and signed-1024: `miller_product_signed` + `final_exp`;
-    each (i, j) entry against e(G1, G2)^(sum_k +-a_ik b_jk), and the whole
-    (2, 2) result through `comt_eq` against the host's entries."""
+def run_signed(path, k, mask, device, mult1, mult2, rng, shapes):
+    """signed-2048 and signed-1024: `miller_product_signed` + `final_exp`
+    (launch shapes to `shapes`); each (i, j) entry against
+    e(G1, G2)^(sum_k +-a_ik b_jk), and the whole (2, 2) result through
+    `comt_eq` against the host's entries."""
     from groth_sahai_tpu_torch.models import commit_group as CG
     from groth_sahai_tpu_torch.models import kernels as MK
     from groth_sahai_tpu_torch.ops.tower import FQ12
@@ -505,11 +595,12 @@ def run_signed(path, k, mask, device, mult1, mult2, rng):
     sync()
 
     reset_counts()
-    t0 = time.perf_counter()
-    f = MK.miller_product_signed(com1, com2, mask)
-    out = MK.final_exp(f)
-    sync()
-    secs = time.perf_counter() - t0
+    with recording(shapes):
+        t0 = time.perf_counter()
+        f = MK.miller_product_signed(com1, com2, mask)
+        out = MK.final_exp(f)
+        sync()
+        secs = time.perf_counter() - t0
     counts = read_counts()
 
     t0 = time.perf_counter()
@@ -534,12 +625,13 @@ def run_signed(path, k, mask, device, mult1, mult2, rng):
     return counts, secs, time.perf_counter() - t0, (com1, com2, mask)
 
 
-def run_gt_exp(device, pair_out, rng):
+def run_gt_exp(device, pair_out, rng, shapes):
     """gt-exp-4096: `gt_exp` on (1024, 2, 2) with one 255-bit rho per
     equation broadcast over (2, 2) (batch.py:206), then on (1024) lanes
     (batch.py:210). Part 1's bases are pairing-4096's GT outputs; part 2's
     are those of lanes 0..1023 with raw Miller outputs (not in GT, as the
-    batch verifier's ratios are not) in eight lanes."""
+    batch verifier's ratios are not) in eight lanes. Launch shapes go to
+    `shapes`."""
     import torch
     from groth_sahai_tpu_torch.ops import bls12_381 as C
     from groth_sahai_tpu_torch.ops.fp import FR
@@ -561,11 +653,12 @@ def run_gt_exp(device, pair_out, rng):
     sync()
 
     reset_counts()
-    t0 = time.perf_counter()
-    out1 = gt_exp(base1, rho_t.reshape(FR.n, n, 1, 1))
-    out2 = gt_exp(base2, rho_t)
-    sync()
-    secs = time.perf_counter() - t0
+    with recording(shapes):
+        t0 = time.perf_counter()
+        out1 = gt_exp(base1, rho_t.reshape(FR.n, n, 1, 1))
+        out2 = gt_exp(base2, rho_t)
+        sync()
+        secs = time.perf_counter() - t0
     counts = read_counts()
 
     t0 = time.perf_counter()
@@ -632,36 +725,53 @@ def bound_ms(name: str, lanes: int, args) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def time_kernel(name, lanes, args):
+    """(device ms per launch, wrapper ms, plain ms, bound ms, bound by) of
+    one kernel on one case; its outputs compared once more."""
+    kern, plain = kernels()[name], plain_of(name)
+    saved = kern.launches
+    if compare(name, args) != 0:
+        raise AssertionError(f"{name} differs from its plain version at the "
+                             f"timing shape ({lanes} lanes)")
+    slow = name in ("pow_const", "cyc_pow", "f12_pow_dyn")
+    ms = device_ms(lambda: kern(*args), 3 if slow else 20, name)
+    wrapper_ms = time_ms(lambda: kern(*args), 3 if slow else 20)
+    plain_ms = time_ms(lambda: plain(*args), 1 if slow else 5)
+    kern.launches = saved              # timing launches are not path launches
+    return (ms, wrapper_ms, plain_ms) + bound_ms(name, lanes, args)
+
+
 def kernel_report(worst, timing, counts, by_path):
-    """Each kernel at its path shape: device time per launch (profiler),
-    the wrapper's time per call and the plain version's (CUDA events), its
-    bound; the outputs of these inputs compared once more."""
+    """Each kernel at its path shape (and cyc_pow at the signed products'
+    4 lanes too): device time per launch (profiler), the wrapper's time per
+    call and the plain version's (CUDA events), its bound; the outputs of
+    these inputs compared once more."""
     rows = []
     for name, (replaces, source) in ORIGIN.items():
-        args, lanes = timing[name], PATH_LANES[name]
-        kern, plain = kernels()[name], plain_of(name)
-        saved = kern.launches
-        err = compare(name, args)
-        if err != 0:
-            raise AssertionError(f"{name} differs from its plain version "
-                                 f"at the timing shape")
-        slow = name in ("pow_const", "cyc_pow", "f12_pow_dyn")
-        ms = device_ms(lambda: kern(*args), 3 if slow else 20, name)
-        wrapper_ms = time_ms(lambda: kern(*args), 3 if slow else 20)
-        plain_ms = time_ms(lambda: plain(*args), 1 if slow else 5)
-        kern.launches = saved          # timing launches are not path launches
-        bound, by = bound_ms(name, lanes, args)
-        rows.append({
+        lanes = PATH_LANES[name]
+        ms, wrapper_ms, plain_ms, bound, by = time_kernel(
+            name, lanes, timing[name, lanes])
+        row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
-            "max_abs_err": max(worst[name], err), "ms": ms,
+            "max_abs_err": worst[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None, "lanes": lanes, "wrapper_ms": wrapper_ms,
             "launches_by_path": {path: c[name] for path, c in by_path.items()},
-        })
+        }
         print(f"[report] {name:15s} lanes={lanes:6d} device {ms:.4f} ms per "
               f"launch (wrapper {wrapper_ms:.4f} ms per call, plain "
               f"{plain_ms:.4f} ms), bound {bound:.5f} ms by {by}", flush=True)
+        if name in ALSO_TIMED:
+            m = ALSO_TIMED[name]
+            t = time_kernel(name, m, timing[name, m])
+            row["also"] = dict(zip(("lanes", "ms", "wrapper_ms", "plain_ms",
+                                    "bound_ms", "bound_by"), (m,) + t))
+            print(f"[report] {name:15s} lanes={m:6d} device {t[0]:.4f} ms per "
+                  f"launch (wrapper {t[1]:.4f} ms per call, plain "
+                  f"{t[2]:.4f} ms), bound {t[3]:.5f} ms by {t[4]}",
+                  flush=True)
+        rows.append(row)
     return rows
 
 
@@ -719,15 +829,16 @@ def signed_mask(k: int, rhs: int, rng):
 
 
 def run_paths(device, mult1, mult2, rng, phases):
-    """Phase 3: the five paths. Returns (launch counts by path, a callable
-    re-running each path for its profile, pairing-4096's outputs)."""
+    """Phase 3: the five paths. Returns (launch counts by path, the launch
+    shapes by path, a callable re-running each path for its profile)."""
     from groth_sahai_tpu_torch.models import kernels as MK
     from groth_sahai_tpu_torch.ops.pairing import gt_exp, pairing
     from groth_sahai_tpu_torch.ops.tower import FQ12
     by_path, runs = {}, {}
+    shapes = collections.defaultdict(collections.Counter)
     for path, n in (("pairing-8192", BATCH), ("pairing-4096", FUSED)):
         c, phases[path], phases[path + "_checks"], pq, out = run_pairing(
-            path, n, device, mult1, mult2, rng)
+            path, n, device, mult1, mult2, rng, shapes[path])
         by_path[path] = c
         runs[path] = (lambda pq=pq, n=n: FQ12.cyclotomic_sqr(pairing(*pq))
                       if n <= FUSED else pairing(*pq))
@@ -736,25 +847,35 @@ def run_paths(device, mult1, mult2, rng, phases):
     for path, k, rhs in (("signed-2048", K_SIGNED, 0),
                          ("signed-1024", K_PPE, K_PPE_RHS)):
         c, phases[path], phases[path + "_checks"], coms = run_signed(
-            path, k, signed_mask(k, rhs, rng), device, mult1, mult2, rng)
+            path, k, signed_mask(k, rhs, rng), device, mult1, mult2, rng,
+            shapes[path])
         by_path[path] = c
         runs[path] = lambda coms=coms: MK.final_exp(
             MK.miller_product_signed(*coms))
     c, phases["gt-exp-4096"], phases["gt-exp-4096_checks"], g = run_gt_exp(
-        device, pair4096, rng)
+        device, pair4096, rng, shapes["gt-exp-4096"])
     by_path["gt-exp-4096"] = c
     runs["gt-exp-4096"] = lambda: (gt_exp(g[0], g[2].reshape(
         g[2].shape[0], EQUATIONS, 1, 1)), gt_exp(g[1], g[2]))
-    return by_path, runs, pair4096
+    return by_path, shapes, runs
 
 
-def check_counts(by_path):
+def check_counts(by_path, shapes_by_path):
     """Every kernel the reference takes on a path launched on it, the
     fused kernels not on the paths above their cap, the Miller iterations
-    exactly 63 + 5 times and f12_pow_dyn once per gt_exp call."""
+    exactly 63 + 5 times and f12_pow_dyn once per gt_exp call; every
+    launch recorded with its shape."""
     for path, counts in by_path.items():
         print(f"[report] launches on {path}: {json.dumps(counts)}",
               flush=True)
+        seen = collections.Counter()
+        for (name, *_), calls in shapes_by_path[path].items():
+            seen[name] += calls
+        unseen = {k: (counts[k], seen[k]) for k in counts
+                  if counts[k] != seen[k]}
+        if unseen:
+            raise AssertionError(f"launches on {path} against launches "
+                                 f"recorded with their shape: {unseen}")
         need, never = PATH_KERNELS[path]
         idle = [k for k in need if counts[k] == 0]
         if idle:
@@ -805,7 +926,7 @@ def main() -> int:
               f"{card}", flush=True)
 
         t0 = time.perf_counter()
-        worst, timing = check_kernels(device)
+        worst, timing, checked = check_kernels(device)
         phases["kernels"] = time.perf_counter() - t0
 
         rng = random.Random(SEED)
@@ -813,10 +934,15 @@ def main() -> int:
         mult1, mult2 = host_multiples(BATCH)
         phases["host_inputs"] = time.perf_counter() - t0
 
-        by_path, runs, pair4096 = run_paths(device, mult1, mult2, rng,
-                                            phases)
-        check_counts(by_path)
+        by_path, shapes, runs = run_paths(device, mult1, mult2, rng, phases)
+        check_counts(by_path, shapes)
         total = {k: sum(c[k] for c in by_path.values()) for k in ORIGIN}
+
+        t0 = time.perf_counter()
+        extra = check_path_shapes(device, shapes, checked, worst)
+        phases["path_shapes"] = time.perf_counter() - t0
+        print(f"[shapes] {extra} launch shapes of the paths held beside "
+              f"phase 2's {len(checked) - extra}", flush=True)
 
         t0 = time.perf_counter()
         rows = kernel_report(worst, timing, total, by_path)

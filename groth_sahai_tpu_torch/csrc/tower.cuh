@@ -232,7 +232,7 @@ __device__ __noinline__ void cyc_sqr_red(const FieldQ& f, const Fp12& a,
 // ------------------------------------------- the Miller-iteration bodies
 //
 // pallas_tower.py's in-kernel helpers of the fused Miller iterations
-// (_f12_sqr_red, _f12_select, _f2_mulred, _f2_sqrred, _f2_mul_fq,
+// (_f12_sqr_red, _f2_mulred, _f2_sqrred, _f2_mul_fq,
 // _dbl_step_body, _add_step_body, _sparse_line_mul), step for step: the
 // same k p offsets and the same post-reductions, so the limbs equal the
 // reference's. Every Fq2 product of the point steps is post-reduced to
@@ -244,14 +244,12 @@ __device__ __forceinline__ void f12_sqr_red(const FieldQ& f, const Fp12& a,
   f12_mul_red(f, a, a, c);
 }
 
-// mask ? a : b, coefficientwise (_f12_select).
-__device__ __forceinline__ void f12_select(bool mask, const Fp12& a,
-                                           const Fp12& b, Fp12& c) {
+// c = a, every limb.
+__device__ __forceinline__ void f12_copy(const Fp12& a, Fp12& c) {
   const uint32_t* x = &a[0][0][0][0];
-  const uint32_t* y = &b[0][0][0][0];
   uint32_t* z = &c[0][0][0][0];
 #pragma unroll 1
-  for (int i = 0; i < 12 * N; ++i) z[i] = mask ? x[i] : y[i];
+  for (int i = 0; i < 12 * N; ++i) z[i] = x[i];
 }
 
 // Fq2 product, both components post-reduced to < 2p (_f2_mulred; the

@@ -221,32 +221,33 @@ constexpr int kScalarLimbs = 17;               // Fr standard-form limbs
 // (_f12_pow_dyn_kernel): 272 rounds from the Fq12 one (R mod p in
 // coefficient 0), MSB first, leading zeros included; each round a
 // post-reduced generic square, then, on a set bit, a post-reduced product
-// with a. The reference always multiplies and then selects; on a clear bit
-// the select keeps the square, so skipping the product there gives the
-// same limbs. Lanes of a warp take different bits, so the product
-// diverges; its cost is the warp's busiest lane.
+// with a. The reference always multiplies and then selects (_f12_select);
+// on a clear bit the select keeps the square, so taking the square there
+// and skipping the product gives the same limbs. Lanes of a warp take
+// different bits, so the product diverges; its cost is the warp's busiest
+// lane.
 __global__ void __launch_bounds__(kThreads)
 f12_pow_dyn_kernel(const __grid_constant__ FieldQ f, const int64_t* a,
                    const int64_t* s, int64_t* out, int64_t m) {
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (lane >= m) return;
-  Fp12 x, acc, t, u;
+  Fp12 x, acc, t;
   uint32_t sc[kScalarLimbs];
   load12(a, m, lane, x);
 #pragma unroll
   for (int i = 0; i < kScalarLimbs; ++i)
     sc[i] = static_cast<uint32_t>(s[i * m + lane]);
   uint32_t* w = &acc[0][0][0][0];
-  uint32_t* wu = &u[0][0][0][0];
 #pragma unroll 1
-  for (int i = 0; i < 12 * N; ++i) w[i] = wu[i] = 0;
+  for (int i = 0; i < 12 * N; ++i) w[i] = 0;
   copy(f.one, acc[0][0][0]);
 #pragma unroll 1
   for (int b = 16 * kScalarLimbs - 1; b >= 0; --b) {
     f12_sqr_red(f, acc, t);
-    const bool bit = (sc[b >> 4] >> (b & 15)) & 1;
-    if (bit) f12_mul_red(f, t, x, u);
-    f12_select(bit, u, t, acc);
+    if ((sc[b >> 4] >> (b & 15)) & 1)
+      f12_mul_red(f, t, x, acc);
+    else
+      f12_copy(t, acc);
   }
   store12(out, m, lane, acc);
 }

@@ -402,8 +402,10 @@ def _broadcast_lanes(f, fq2s, fqs):
             batch)
 
 
-def _miller_launch(name, f, fq2s, fqs, extra):
-    """Launch one Miller-iteration kernel; returns (f', (X3, Y3, Z3))."""
+def _miller_launch(wrapper, f, fq2s, fqs, extra):
+    """Launch the Miller-iteration kernel of `wrapper` and count it;
+    returns (f', (X3, Y3, Z3))."""
+    name = wrapper.__name__
     f, fq2s, fqs, batch = _broadcast_lanes(f, fq2s, fqs)
     n = FQ.n
     f2 = _rows12(f, name + " f")
@@ -418,8 +420,9 @@ def _miller_launch(name, f, fq2s, fqs, extra):
         check(fn(n, *(x.data_ptr() for x in ins + [fo] + rs), m,
                  host_words(FQ, FQ.p), host_words(FQ, FQ.r_mod_p), *extra,
                  FQ.n0, stream(f2)), name, n)
+        wrapper.launches += 1
     shape2 = (n, 2) + tuple(batch)
-    return (fo.reshape(f.shape), tuple(r.reshape(shape2) for r in rs)), m
+    return fo.reshape(f.shape), tuple(r.reshape(shape2) for r in rs)
 
 
 def miller_iter_dbl(f, R, px, py):
@@ -432,11 +435,8 @@ def miller_iter_dbl(f, R, px, py):
     """
     if on_cpu(f, *R, px, py):
         return miller_iter_dbl_plain(f, R, px, py)
-    out, m = _miller_launch("miller_iter_dbl", f, list(R), [px, py],
-                            [host_words(FQ, TWO_INV_MONT)])
-    if m:
-        miller_iter_dbl.launches += 1
-    return out
+    return _miller_launch(miller_iter_dbl, f, list(R), [px, py],
+                          [host_words(FQ, TWO_INV_MONT)])
 
 
 def miller_iter_add(f, R, Q, px, py):
@@ -447,11 +447,8 @@ def miller_iter_add(f, R, Q, px, py):
     """
     if on_cpu(f, *R, *Q, px, py):
         return miller_iter_add_plain(f, R, Q, px, py)
-    out, m = _miller_launch("miller_iter_add", f, list(R) + list(Q),
-                            [px, py], [])
-    if m:
-        miller_iter_add.launches += 1
-    return out
+    return _miller_launch(miller_iter_add, f, list(R) + list(Q), [px, py],
+                          [])
 
 
 def f12_pow_dyn(a, s):

@@ -25,8 +25,6 @@ the identity (matches `E::pairing(0, q) = 1`).
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from .fp import FQ
@@ -139,7 +137,7 @@ def miller_loop(p_aff, q_aff):
     dev = px.device
     R = (q_aff[0], q_aff[1], FQ2.one(batch, device=dev))
     f = FQ12.one(batch, device=dev)
-    if math.prod(batch) <= T.FUSED_MAX_LANES:
+    if T._fused(f):
         # one fused launch per iteration (the reference's
         # pallas_tower.miller_iter_dbl / miller_iter_add)
         for do_add in _X_BITS[1:]:
@@ -234,7 +232,7 @@ def gt_exp(a, scalar_limbs):
     product per bit with a select, over all 16 * n_limbs bits, MSB first.
     """
     batch = a.shape[2:]
-    if 0 < math.prod(batch) <= T.FUSED_MAX_LANES:
+    if batch.numel() and T._fused(a):
         return CT.f12_pow_dyn(a, scalar_limbs)
     acc = FQ12.one(batch, device=a.device)
     for i in range(scalar_limbs.shape[0] * 16 - 1, -1, -1):
