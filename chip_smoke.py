@@ -9,20 +9,24 @@ Phases (any failure exits non-zero and prints no result line):
                 for sm_90a, one process per source, all at once; prints the
                 build time, the compiler's resource report and the card's
                 name and power limit;
-  2. kernels -- each of the ten kernels against its plain PyTorch version on
+  2. kernels -- each of the twelve kernels against its plain PyTorch version on
                 the card, bit-exact, at the paths' main shapes: the field
                 kernels at Fq width over the pairing's stacks (16384,
                 442368, 98304 and 8192 lanes) and at Fr width over 8192
                 lanes; fq12_mul over 4096 and 4 lanes, cyc_pow over 4096
                 and 4 for the final exponentiation's three exponents; the
                 Miller iterations and cyc_sqr over 4096, f12_pow_dyn over
-                4096 and 1024. Seeded random inputs plus edge lanes at the
+                4096 and 1024; cmadd and cdbl_n_add (n = 4) on G1 over
+                4096, 1336 and 4 lanes and on G2 over 1336 and 4. Seeded
+                random inputs plus edge lanes at the
                 top of each kernel's input bound (0, 1, p-1, 2p-1,
                 value(a)*value(b) = 2^16 p^2, wide t = p R - 1; Fq12
                 coefficients 32p - 1 or 2p - 1; Miller R with Y = 10p - 1,
                 P and Q at p - 1 and at the padding point (0, 0); scalars 0,
-                r - 1, 2^272 - 1);
-  3. paths   -- five runs through the port's entry points, each against the
+                r - 1, 2^272 - 1; curve points with the accumulator at
+                infinity, the affine point at infinity, P + P, P + (-P),
+                coordinates at 4p - 1 and 2p - 1);
+  3. paths   -- twelve runs through the port's entry points, each against the
                 host oracle:
                 pairing-8192: `pairing(P, Q)` over 8192 pairs (P_i = a_i G1,
                   Q_i = b_i G2, a few infinity lanes); sampled lanes and the
@@ -43,6 +47,19 @@ Phases (any failure exits non-zero and prints no result line):
                   pairing-4096; the product of all lanes against
                   e(G1, G2)^(sum a_i b_i rho_i)), then on (1024) lanes with
                   raw Miller outputs (not in GT) among them;
+                commit-g1-334, commit-g2-334, commit-scalar-b1-334,
+                  commit-scalar-b2-334: `batch_commit_*` of 334 variables
+                  (the reference's commit_*_334 rows), every commitment
+                  against its discrete log on the host;
+                scalar-mul-g1-4096: `G1.scalar_mul` of 4096 points, 517
+                  lanes (edge scalars 0, 1, r - 1, 2^254 - 1, a point at
+                  infinity) and the sum of all lanes against the host;
+                gs-e2e: generate_crs, then commit_and_prove and verify of
+                  the four equations of tests/test_gs_e2e.py, each verifying
+                  and failing with a wrong target;
+                prove-verify-ppe-8x8: a PPE with m = n = 8 (K = 28 Miller
+                  pairs), verifying and failing with one element of pi
+                  replaced;
                 each counted run records the shape (and exponent) of every
                 launch, and every kernel is then held bit-exact, with
                 inputs made as in phase 2, at each recorded shape that
@@ -50,7 +67,9 @@ Phases (any failure exits non-zero and prints no result line):
                 product's halvings, the final exponentiation's inverse);
   4. report  -- launch counts of each path (every kernel the reference takes
                 there must have run on it, each launch recorded with its
-                shape; the Miller iterations exactly 63 + 5 times), each
+                shape; the Miller iterations exactly 63 + 5 times per
+                Miller loop, the curve kernels 14 + 64 times per
+                scalar_mul), each
                 kernel's device time per launch
                 (profiler) at its path shape beside its bound, the plain
                 version's time (CUDA events), one `kernels` JSON line, a
@@ -86,6 +105,7 @@ PEAK_IMAD_PER_S = 64 * 132 * 1.98e9
 
 FP_SOURCE = "groth_sahai_tpu_torch/csrc/fp_kernels.cu"
 TOWER_SOURCE = "groth_sahai_tpu_torch/csrc/tower_kernels.cu"
+CURVE_SOURCE = "groth_sahai_tpu_torch/csrc/curve_kernels.cu"
 ORIGIN = {   # kernel -> (the TPU kernel it replaces, its source in the port)
     "mont_mul": ("groth_sahai_tpu/ops/pallas_fp.py:188", FP_SOURCE),
     "mul_wide": ("groth_sahai_tpu/ops/pallas_fp.py:169", FP_SOURCE),
@@ -99,30 +119,95 @@ ORIGIN = {   # kernel -> (the TPU kernel it replaces, its source in the port)
     "miller_iter_add": ("groth_sahai_tpu/ops/pallas_tower.py:688",
                         TOWER_SOURCE),
     "f12_pow_dyn": ("groth_sahai_tpu/ops/pallas_tower.py:832", TOWER_SOURCE),
+    "cmadd": ("groth_sahai_tpu/ops/pallas_curve.py:437", CURVE_SOURCE),
+    "cdbl_n_add": ("groth_sahai_tpu/ops/pallas_curve.py:475", CURVE_SOURCE),
 }
 FIELD = ("mont_mul", "mul_wide", "redc", "pow_const")
 NEW = ("cyc_sqr", "miller_iter_dbl", "miller_iter_add", "f12_pow_dyn")
 MILLER = ("miller_iter_dbl", "miller_iter_add")
+CURVE = ("cmadd", "cdbl_n_add")
+TOWER = ("fq12_mul", "cyc_pow", "cyc_sqr", "f12_pow_dyn") + MILLER
 # The kernels each path must launch, as the reference takes them: above
 # 4096 lanes the Miller loop runs the lazy tower over the field kernels
 # alone; the signed product's reduction and final exponentiation run at
 # <= 4096 lanes and take the tower kernels; at <= 4096 lanes each Miller
 # iteration is one fused launch. `None`: the kernels the path must not
 # launch (the big batches stay above the fused kernels' cap).
+# The group commits, the scalar commits and scalar-mul-g1-4096 run
+# Curve.scalar_mul (the curve kernels), the Jacobian glue on mont_mul (G1)
+# or mul_wide + redc (G2), and to_affine's batched inverse on pow_const;
+# none of them pairs anything. The prove/verify paths run all of that and
+# the verifier's signed Miller product at Kp <= 1024 (fused Miller loop).
+G1_GLUE = ("mont_mul",)
+G2_GLUE = ("mont_mul", "mul_wide", "redc")
 PATH_KERNELS = {
-    "pairing-8192": (FIELD, NEW),
-    "signed-2048": (FIELD + ("fq12_mul", "cyc_pow"), NEW),
+    "pairing-8192": (FIELD, NEW + CURVE),
+    "signed-2048": (FIELD + ("fq12_mul", "cyc_pow"), NEW + CURVE),
     "pairing-4096": (FIELD + ("fq12_mul", "cyc_pow", "cyc_sqr") + MILLER,
-                     ("f12_pow_dyn",)),
+                     ("f12_pow_dyn",) + CURVE),
     "signed-1024": (FIELD + ("fq12_mul", "cyc_pow") + MILLER,
-                    ("cyc_sqr", "f12_pow_dyn")),
-    "gt-exp-4096": (("f12_pow_dyn",), MILLER + ("cyc_sqr", "cyc_pow")),
+                    ("cyc_sqr", "f12_pow_dyn") + CURVE),
+    "gt-exp-4096": (("f12_pow_dyn",), MILLER + ("cyc_sqr", "cyc_pow") + CURVE),
+    "commit-g1-334": (CURVE + G1_GLUE + ("pow_const",), TOWER),
+    "commit-g2-334": (CURVE + G2_GLUE + ("pow_const",), TOWER),
+    "commit-scalar-b1-334": (CURVE + G1_GLUE + ("pow_const",), TOWER),
+    "commit-scalar-b2-334": (CURVE + G2_GLUE + ("pow_const",), TOWER),
+    "scalar-mul-g1-4096": (CURVE + G1_GLUE, TOWER + ("pow_const",)),
+    "gs-e2e": (FIELD + CURVE + MILLER + ("fq12_mul", "cyc_pow"),
+               ("cyc_sqr", "f12_pow_dyn")),
+    "prove-verify-ppe-8x8": (FIELD + CURVE + MILLER + ("fq12_mul", "cyc_pow"),
+                             ("cyc_sqr", "f12_pow_dyn")),
 }
 EXACT = {("pairing-4096", "miller_iter_dbl"): 63,
          ("pairing-4096", "miller_iter_add"): 5,
          ("signed-1024", "miller_iter_dbl"): 63,
          ("signed-1024", "miller_iter_add"): 5,
          ("gt-exp-4096", "f12_pow_dyn"): 2}
+# Curve.scalar_mul: 14 cmadd launches (the table 2P .. 15P) and 64
+# cdbl_n_add launches (one per 4-bit window of 256 bits) per call.
+SCALAR_MUL_LAUNCHES = {"cmadd": 14, "cdbl_n_add": 64}
+M_COMMIT = 334           # variables of the reference's commit_*_334 rows
+SCALAR_LANES = 4096      # points of scalar-mul-g1-4096 (benches/suite.py)
+PPE_SIDE = 8             # m = n of prove-verify-ppe-8x8: the largest PPE
+                         # whose com_matvec stays below K = 16
+
+
+def e2e_scalar_muls(x_scalar: bool, y_scalar: bool, quad: bool,
+                    verifies: int) -> int:
+    """Curve.scalar_mul calls of one commit_and_prove and `verifies`
+    verify calls of one equation, as models/prover.py and verifier.py make
+    them: a group side commits with one com_matvec (R times the key), a
+    scalar side with two (iota_prime and scalar_mul_vec); the prover makes
+    six com_matvec (pi1, pi2, pi3, th1, th2, th3) and, per scalar side, two
+    iota_prime (the constants' and the variables' _iota_side); `verify`
+    makes one com_matvec (Gamma d), one iota_prime per scalar side (the
+    constants) and, for a quadratic equation, the target pair's
+    scalar_mul_vec. Each com_matvec here has K < 16: one scalar_mul."""
+    commit = (2 if x_scalar else 1) + (2 if y_scalar else 1)
+    prove = 6 + 2 * x_scalar + 2 * y_scalar
+    return commit + prove + verifies * (1 + x_scalar + y_scalar + quad)
+
+
+# gs-e2e: the four equations of tests/test_gs_e2e.py, each proved, then
+# verified and verified again with a wrong target: 10 + 15 + 15 + 22 = 62
+# scalar multiplications, and 8 signed Miller products at Kp <= 1024, each
+# 63 + 5 fused Miller iterations. prove-verify-ppe-8x8: one PPE, verified
+# and verified again with a changed pi.
+E2E_TYPES = {"PPE": (False, False, False), "MSMEG1": (False, True, False),
+             "MSMEG2": (True, False, False), "QuadEqu": (True, True, True)}
+SCALAR_MULS = {
+    "commit-g1-334": 1, "commit-g2-334": 1, "commit-scalar-b1-334": 2,
+    "commit-scalar-b2-334": 2, "scalar-mul-g1-4096": 1,
+    "gs-e2e": sum(e2e_scalar_muls(*t, verifies=2)
+                  for t in E2E_TYPES.values()),
+    "prove-verify-ppe-8x8": e2e_scalar_muls(False, False, False, 2)}
+VERIFIES = {"gs-e2e": 2 * len(E2E_TYPES), "prove-verify-ppe-8x8": 2}
+for _path, _calls in SCALAR_MULS.items():
+    for _name, _per in SCALAR_MUL_LAUNCHES.items():
+        EXACT[_path, _name] = _calls * _per
+for _path, _calls in VERIFIES.items():
+    EXACT[_path, "miller_iter_dbl"] = 63 * _calls
+    EXACT[_path, "miller_iter_add"] = 5 * _calls
 
 
 def card_line() -> str:
@@ -140,16 +225,19 @@ def sync():
         torch.cuda.synchronize()
 
 
+def kernel_modules():
+    from groth_sahai_tpu_torch.ops import cuda_curve, cuda_fp, cuda_tower
+    return cuda_fp, cuda_tower, cuda_curve
+
+
 def kernels():
     """name -> wrapper of every ported kernel."""
-    from groth_sahai_tpu_torch.ops import cuda_fp as K, cuda_tower as CT
-    return {k.__name__: k for k in K.KERNELS + CT.KERNELS}
+    return {k.__name__: k for m in kernel_modules() for k in m.KERNELS}
 
 
 def reset_counts():
-    from groth_sahai_tpu_torch.ops import cuda_fp as K, cuda_tower as CT
-    K.reset_counts()
-    CT.reset_counts()
+    for m in kernel_modules():
+        m.reset_counts()
 
 
 def read_counts():
@@ -258,12 +346,19 @@ def fq12_inputs(lanes: int, bound_p: int, gen, device, edges):
 # on (2, 2, 1024) = 4096 lanes on signed-1024 and on 4096 on pairing-4096,
 # cyc_sqr on pairing-4096's outputs, f12_pow_dyn on (1024, 2, 2) = 4096
 # lanes (and on 1024). The paths' other shapes are recorded as they run.
+# The curve kernels are timed on G1 over scalar-mul-g1-4096's 4096 lanes,
+# and over the group commits' (2, 334, 2) = 1336 lanes on G1 and G2.
+COMMIT_LANES = 4 * M_COMMIT
 PATH_LANES = {"mont_mul": 2 * BATCH, "mul_wide": 54 * BATCH,
               "redc": 12 * BATCH, "pow_const": BATCH,
               "fq12_mul": 4096, "cyc_pow": FUSED, "cyc_sqr": FUSED,
               "miller_iter_dbl": FUSED, "miller_iter_add": FUSED,
-              "f12_pow_dyn": FUSED}
-ALSO_TIMED = {"cyc_pow": 4}
+              "f12_pow_dyn": FUSED, "cmadd": SCALAR_LANES,
+              "cdbl_n_add": SCALAR_LANES}
+MAIN_FIELD = {"cmadd": "G1", "cdbl_n_add": "G1"}     # others: Fq
+ALSO_TIMED = {"cyc_pow": [("Fq", 4)],
+              "cmadd": [("G2", COMMIT_LANES), ("G1", COMMIT_LANES)],
+              "cdbl_n_add": [("G2", COMMIT_LANES), ("G1", COMMIT_LANES)]}
 
 
 def fq2_inputs(lanes: int, bound_p: int, gen, device, edges):
@@ -309,10 +404,78 @@ def scalar_inputs(lanes: int, gen, device):
     return s
 
 
+def curve_edge_lanes(curve):
+    """Montgomery ints (G1) or int pairs (G2) of the curve kernels' edge
+    lanes, (P, Q, A, inf): lane 0 P at infinity (0 : 1 : 0); lane 1 A and
+    Q at infinity; lane 2 P = A = Q (P + P, Q with another Z); lane 3
+    Q = -P and A = -P (P + (-P)); lane 4 every coordinate at the top of
+    its bound (4p - 1 projective, 2p - 1 affine)."""
+    from groth_sahai_tpu_torch.ops.fp import FQ
+    from groth_sahai_tpu_torch.utils import hostcrypto as H
+    p = FQ.p
+    g2 = curve.ns == 2
+    gen = ((H.C.G2_GEN_X, H.C.G2_GEN_Y) if g2 else (H.C.G1_GEN_X,
+                                                     H.C.G1_GEN_Y))
+    mul = H.g2_mul if g2 else H.g1_mul
+    pts = [mul(gen, k) for k in (7, 11, 13)]
+    scale = lambda v, k: (tuple(c * k % p for c in v) if g2 else v * k % p)
+    mont = lambda v: scale(v, FQ.r_mod_p)
+    zero, one = ((0, 0), (1, 0)) if g2 else (0, 1)
+    const = lambda v: (v, v) if g2 else v
+
+    def proj(pt, lam, negate=False):
+        y = (scale(pt[1], p - 1) if negate else pt[1])
+        return tuple(mont(scale(c, lam)) for c in (pt[0], y, one))
+
+    inf = (zero, mont(one), zero)
+    P = [inf, proj(pts[0], 3), proj(pts[1], 5), proj(pts[2], 7),
+         (const(4 * p - 1),) * 3]
+    Q = [proj(pts[0], 9), inf, proj(pts[1], 11), proj(pts[2], 13, True),
+         (const(4 * p - 1),) * 3]
+    A = [tuple(mont(c) for c in pts[1]), (zero, zero),
+         tuple(mont(c) for c in pts[1]), (mont(pts[2][0]),
+                                          mont(scale(pts[2][1], p - 1))),
+         (const(2 * p - 1),) * 2]
+    return P, Q, A, [False, True, False, False, False]
+
+
+def curve_args(name, curve, lanes, n_dbl, gen, device):
+    """(P, A, curve) or (P, n_dbl, Q, curve): seeded random coordinates
+    (< 4p projective, < 2p affine, a quarter of the affine points at
+    infinity), then the edge lanes of `curve_edge_lanes`."""
+    import torch
+    from groth_sahai_tpu_torch.ops.fp import FQ
+
+    def coord(bound_p, edges):
+        x = fq2_inputs(lanes, bound_p, gen, device, [])
+        if curve.ns == 1:
+            x = x[:, 0].contiguous()
+        for k, v in enumerate(edges[:lanes]):
+            vals = list(v) if curve.ns == 2 else [v]
+            x[..., k] = edge_limbs(vals, FQ.n, device).reshape(x[..., k].shape)
+        return x
+
+    P, Q, A, inf = curve_edge_lanes(curve)
+    p = tuple(coord(4, [pt[c] for pt in P]) for c in range(3))
+    if name == "cdbl_n_add":
+        q = tuple(coord(4, [pt[c] for pt in Q]) for c in range(3))
+        return p, n_dbl, q, curve
+    flags = torch.rand(lanes, generator=gen) < 0.25
+    flags[:len(inf)] = torch.tensor(inf[:lanes])
+    flags = flags.to(device)
+    a = [coord(2, [pt[c] for pt in A]) for c in range(2)]
+    for x in a:                        # affine infinity is (0, 0)
+        x[..., flags] = 0
+    return p, (a[0], a[1], flags), curve
+
+
 def case_args(name, field, lanes, e, gen, device):
     """The arguments of one kernel call over `lanes` lanes: seeded random
     values plus the edge lanes; `e` is the exponent of pow_const and
-    cyc_pow."""
+    cyc_pow, the number of doublings of cdbl_n_add; `field` is the curve
+    of a curve kernel."""
+    if name in CURVE:
+        return curve_args(name, field, lanes, e, gen, device)
     p = field.p
     if name in FIELD:
         a, b, t = field_inputs(field, lanes, gen, device)
@@ -340,17 +503,23 @@ def phase2_shapes():
                field.p - 2 if name == "pow_const" else None)
               for field in (FQ, FR) for name in FIELD]
     shapes += [("fq12_mul", FQ, m, None) for m in (PATH_LANES["fq12_mul"], 4)]
-    shapes += [("cyc_pow", FQ, m, e) for m in (FUSED, ALSO_TIMED["cyc_pow"])
+    shapes += [("cyc_pow", FQ, m, e)
+               for m in [FUSED] + [m for _, m in ALSO_TIMED["cyc_pow"]]
                for e in (v_abs // 3, v_abs, abs(C.X))]
     shapes += [(name, FQ, FUSED, None) for name in ("cyc_sqr",) + MILLER]
     shapes += [("f12_pow_dyn", FQ, m, None) for m in (FUSED, EQUATIONS)]
+    from groth_sahai_tpu_torch.ops.curve import G1, G2
+    for name in CURVE:
+        e = 4 if name == "cdbl_n_add" else None
+        shapes += [(name, G1, m, e) for m in (SCALAR_LANES, COMMIT_LANES, 4)]
+        shapes += [(name, G2, m, e) for m in (COMMIT_LANES, 4)]
     return shapes
 
 
 def plain_of(name):
-    from groth_sahai_tpu_torch.ops import cuda_fp as K, cuda_tower as CT
-    plain = dict(K.PLAIN)
-    plain.update(CT.PLAIN)
+    plain = {}
+    for m in kernel_modules():
+        plain.update(m.PLAIN)
     return plain[kernels()[name]]
 
 
@@ -394,7 +563,7 @@ def check_kernels(device):
     (kernel, lanes), the shapes checked)."""
     import torch
     from groth_sahai_tpu_torch.ops import cuda_fp as K
-    from groth_sahai_tpu_torch.ops.fp import FQ
+    from groth_sahai_tpu_torch.ops.fp import FQ, FR
     gen = torch.Generator().manual_seed(SEED)
     worst = {name: 0 for name in ORIGIN}
     timing, checked = {}, set()
@@ -402,8 +571,8 @@ def check_kernels(device):
         args = check_shape(name, field, lanes, e, gen, device, worst,
                            "kernels")
         checked.add((name, field.name, lanes, e))
-        if field is FQ:
-            timing[name, lanes] = args
+        if field is not FR:
+            timing[name, field.name, lanes] = args
     # the Fermat inverse really inverts: a * a^(p-2) == 1 on random lanes
     gen = torch.Generator().manual_seed(SEED + 1)
     fq_a = field_inputs(FQ, 256, gen, device)[0][:, 8:]
@@ -420,25 +589,32 @@ def recording(shapes):
     """While inside, every call of a kernel's wrapper through the port's
     modules that launches adds one to shapes[(kernel, field name, lanes,
     exponent)]. The modules that call the wrappers (fp, tower, pairing,
-    ...) see a copy of `cuda_fp` and `cuda_tower` whose wrappers record;
-    the wrappers themselves and their counts stay as they are."""
+    ...) see a copy of `cuda_fp`, `cuda_tower` and `cuda_curve` whose
+    wrappers record;
+    the wrappers themselves and their counts stay as they are. A curve
+    kernel's shape is (kernel, curve name, lanes, n_dbl)."""
     import types
-    from groth_sahai_tpu_torch.ops import cuda_fp as K, cuda_tower as CT
     from groth_sahai_tpu_torch.ops.fp import FQ
+    K, CT, CC = kernel_modules()
 
     def shim(kern, lead):
         def call(*args):
             out = kern(*args)
-            lanes = flat(out)[0][(0,) * lead].numel()
-            if lanes:
+            if lead is None:                 # curve kernels: (..., curve)
+                field, lead_ = args[-1], args[-1].ns
+                e = args[1] if isinstance(args[1], int) else None
+            else:
                 field = args[0] if lead == 1 else FQ
                 e = args[-1] if isinstance(args[-1], int) else None
+                lead_ = lead
+            lanes = flat(out)[0][(0,) * lead_].numel()
+            if lanes:
                 shapes[kern.__name__, field.name, lanes, e] += 1
             return out
         return call
 
     proxies = []
-    for module, lead in ((K, 1), (CT, 2)):
+    for module, lead in ((K, 1), (CT, 2), (CC, None)):
         proxy = types.ModuleType(module.__name__)
         proxy.__dict__.update(vars(module))
         for kern in module.KERNELS:
@@ -466,8 +642,9 @@ def check_path_shapes(device, shapes_by_path, checked, worst):
     """Every kernel bit-exact against its plain version at each shape the
     paths launched it with that phase 2 did not check."""
     import torch
+    from groth_sahai_tpu_torch.ops.curve import G1, G2
     from groth_sahai_tpu_torch.ops.fp import FQ, FR
-    fields = {FQ.name: FQ, FR.name: FR}
+    fields = {F.name: F for F in (FQ, FR, G1, G2)}
     gen = torch.Generator().manual_seed(SEED + 2)
     todo = sorted({key for shapes in shapes_by_path.values()
                    for key in shapes} - checked, key=str)
@@ -683,6 +860,320 @@ def run_gt_exp(device, pair_out, rng, shapes):
     return counts, secs, time.perf_counter() - t0, (base1, base2, rho_t)
 
 
+# ------------------------------------------------------- phase 3: GS paths
+
+def fr_limbs(values, device):
+    """Standard-form Fr limbs int64[17, len(values)]."""
+    from groth_sahai_tpu_torch.ops.fp import FR
+    return edge_limbs([v % FR.p for v in values], FR.n, device)
+
+
+def crs_logs(seed: int):
+    """The discrete logs, base G1 and G2, of generate_crs(GsRng(seed))'s
+    keys, from its first six draws (r1, r2, a1, a2, t1, t2): u[c][j] of
+    G1 and v[c][j] of G2 for component c and element j ([[p, u], [q, v]],
+    binding), and the GsRng left after those draws."""
+    from groth_sahai_tpu_torch.ops import bls12_381 as C
+    from groth_sahai_tpu_torch.utils.rng import GsRng
+    twin = GsRng(seed)
+    r1, r2, a1, a2, t1, t2 = twin.fr_ints(6)
+    key = lambda r, a, t: ((r, t * r % C.R), (a * r % C.R, t * a * r % C.R))
+    return key(r1, a1, t1), key(r2, a2, t2), twin
+
+
+def run_commit(path, device, logs, rng, shapes):
+    """The four commit paths of M_COMMIT variables through `batch_commit_*`
+    with GsRng draws; every commitment against its discrete log on the
+    host: iota(X) + r1 u1 + r2 u2 for a group side, x (u2 + (O, g)) + r u1
+    for a scalar side (u = v for G2). Returns (counts, seconds, checks
+    seconds, a callable re-running the path)."""
+    from groth_sahai_tpu_torch.ops import bls12_381 as C
+    from groth_sahai_tpu_torch.ops.curve import (g1_affine_from_ints,
+                                                 g1_affine_to_ints,
+                                                 g2_affine_from_ints,
+                                                 g2_affine_to_ints)
+    from groth_sahai_tpu_torch.models import prover as PV
+    from groth_sahai_tpu_torch.utils import hostcrypto as H
+    from groth_sahai_tpu_torch.utils.rng import GsRng
+    crs, (k1, k2), seed = logs
+    g2 = path.endswith(("g2-334", "b2-334"))
+    scalar = "scalar" in path
+    gen = (C.G2_GEN_X, C.G2_GEN_Y) if g2 else (C.G1_GEN_X, C.G1_GEN_Y)
+    mul = H.g2_mul if g2 else H.g1_mul
+    key = k2 if g2 else k1
+    m = M_COMMIT
+    xs = [rng.randrange(C.R) for _ in range(m)]
+    xs[m // 2] = 0                          # a variable at infinity / zero
+    if scalar:
+        fn = PV.batch_commit_scalar_B2 if g2 else PV.batch_commit_scalar_B1
+        args = (fr_limbs(xs, device),)
+    else:
+        fn = PV.batch_commit_G2 if g2 else PV.batch_commit_G1
+        from_ints = g2_affine_from_ints if g2 else g1_affine_from_ints
+        args = (from_ints([mul(gen, x) for x in xs], device=device),)
+    sync()
+
+    def run():
+        return fn(*args, crs, GsRng(seed))
+
+    reset_counts()
+    with recording(shapes):
+        t0 = time.perf_counter()
+        com = run()
+        sync()
+        secs = time.perf_counter() - t0
+    counts = read_counts()
+
+    t0 = time.perf_counter()
+    x, _, inf = com.coms
+    if tuple(inf.shape) != (2, m):
+        raise AssertionError(f"{path}: commitments of shape {tuple(inf.shape)}")
+    w = 1 if scalar else 2
+    r = GsRng(seed).fr_ints(m * w)
+    if scalar:      # x (u2 + (O, g)) + r u1; (O, g) = (O, p) with g = p
+        logs_of = lambda i: ((xs[i] * key[0][1] + r[i] * key[0][0]),
+                             (xs[i] * (key[1][1] + key[0][0])
+                              + r[i] * key[1][0]))
+    else:           # iota(X) + r1 u1 + r2 u2
+        logs_of = lambda i: ((r[2 * i] * key[0][0] + r[2 * i + 1] * key[0][1]),
+                             (xs[i] + r[2 * i] * key[1][0]
+                              + r[2 * i + 1] * key[1][1]))
+    got = (g2_affine_to_ints if g2 else g1_affine_to_ints)(com.coms)
+    for i in range(m):
+        for c, e in enumerate(logs_of(i)):
+            if got[c * m + i] != mul(gen, e % C.R):
+                raise AssertionError(f"{path}: commitment {i}, component {c} "
+                                     f"differs from the host")
+    print(f"[{path}] {m} commitments ({2 * m * w} Fr draws): {secs:.3f} s "
+          f"on the card; all {2 * m} points match the host", flush=True)
+    return counts, secs, time.perf_counter() - t0, run
+
+
+def run_scalar_mul(device, mult1, rng, shapes):
+    """scalar-mul-g1-4096: `G1.scalar_mul` of SCALAR_LANES points a_i G1
+    by random scalars; edge lanes: scalars 0, 1, r - 1, 2^254 - 1 (every
+    nibble 15 but the top one), a point at infinity. 512 seeded lanes and
+    the edges against the host, and the sum of all lanes against
+    (sum a_i s_i) G1."""
+    import torch
+    from groth_sahai_tpu_torch.ops import bls12_381 as C
+    from groth_sahai_tpu_torch.ops.curve import (G1, g1_affine_from_ints,
+                                                 g1_affine_to_ints)
+    from groth_sahai_tpu_torch.utils import hostcrypto as H
+    n = SCALAR_LANES
+    a = [rng.randrange(1, len(mult1) + 1) for _ in range(n)]
+    sc = [rng.randrange(C.R) for _ in range(n)]
+    sc[:4] = [0, 1, C.R - 1, (1 << 254) - 1]
+    a[4] = 0
+    pts = g1_affine_from_ints([None if k == 0 else mult1[k - 1] for k in a],
+                              device=device)
+    s = fr_limbs(sc, device)
+    sync()
+
+    def run():
+        return G1.scalar_mul(pts, s)
+
+    reset_counts()
+    with recording(shapes):
+        t0 = time.perf_counter()
+        out = run()
+        sync()
+        secs = time.perf_counter() - t0
+    counts = read_counts()
+
+    t0 = time.perf_counter()
+    g1 = (C.G1_GEN_X, C.G1_GEN_Y)
+    lanes = list(range(5)) + sorted(rng.sample(range(5, n), min(512, n - 5)))
+    idx = torch.as_tensor(lanes, device=device)
+    got = g1_affine_to_ints(G1.to_affine(tuple(c[:, idx] for c in out)))
+    for lane, g in zip(lanes, got):
+        if g != H.g1_mul(g1, a[lane] * sc[lane]):
+            raise AssertionError(f"scalar-mul-g1-4096: lane {lane} differs "
+                                 f"from the host")
+    total = g1_affine_to_ints(G1.to_affine(tuple(
+        c[:, None] for c in G1.sum_reduce(out, 0))))[0]
+    if total != H.g1_mul(g1, sum(x * y for x, y in zip(a, sc))):
+        raise AssertionError("scalar-mul-g1-4096: the sum of all lanes is "
+                             "wrong")
+    print(f"[scalar-mul-g1-4096] {n} points: {secs:.3f} s on the card; "
+          f"{len(lanes)} lanes (edges 0..4) and the sum of all lanes match "
+          f"the host", flush=True)
+    return counts, secs, time.perf_counter() - t0, run
+
+
+def e2e_cases(crs, device):
+    """The four equations of tests/test_gs_e2e.py (the reference's
+    tests/prover.rs scenarios) over the CRS's generators g1 = p1, g2 = p2,
+    with their targets from discrete logs (gt = e(p1, p2)) and a wrong
+    target each: [(name, statement, wrong statement, X, Y)]."""
+    from groth_sahai_tpu_torch.ops.curve import (g1_affine_from_ints,
+                                                 g1_affine_to_ints,
+                                                 g2_affine_from_ints,
+                                                 g2_affine_to_ints)
+    from groth_sahai_tpu_torch.ops.fp import FR
+    from groth_sahai_tpu_torch.ops.tower import FQ12
+    from groth_sahai_tpu_torch.models import statement as ST
+    from groth_sahai_tpu_torch.utils import hostcrypto as H
+    g1 = g1_affine_to_ints(crs.g1_gen)[0]
+    g2 = g2_affine_to_ints(crs.g2_gen)[0]
+    gt = FQ12.to_ints(crs.gt_gen[:, :, None])[0]
+    G1s = lambda ks: g1_affine_from_ints([None if k is None else
+                                          H.g1_mul(g1, k) for k in ks],
+                                         device=device)
+    G2s = lambda ks: g2_affine_from_ints([None if k is None else
+                                          H.g2_mul(g2, k) for k in ks],
+                                         device=device)
+    G1pt = lambda k: tuple(c[..., 0] for c in G1s([k]))
+    G2pt = lambda k: tuple(c[..., 0] for c in G2s([k]))
+    frs = lambda vs: fr_limbs(vs, device)
+    gamma = frs([5, 0]).reshape(FR.n, 2, 1)
+    gtp = lambda e: FQ12.from_ints([H.f12_pow(gt, e)], device=device)[:, :, 0]
+    # X = [2, 3], Y = [4] (group or scalar); Gamma = [[5], [0]]
+    ppe = 3 * 23 + 17 * 4 + 2 * 4 * 5
+    msm1 = 3 * 31 + 29 * 4 + 2 * 4 * 5
+    msm2 = 3 * 41 + 37 * 4 + 2 * 4 * 5
+    quad = 3 * 47 + 43 * 4 + 2 * 4 * 5
+    return [
+        ("PPE", lambda t: ST.PPE(G1s([17]), G2s([None, 23]), gamma, gtp(t)),
+         ppe, G1s([2, 3]), G2s([4])),
+        ("MSMEG1", lambda t: ST.MSMEG1(G1s([29]), frs([0, 31]), gamma,
+                                        G1pt(t)), msm1, G1s([2, 3]), frs([4])),
+        ("MSMEG2", lambda t: ST.MSMEG2(frs([37]), G2s([None, 41]), gamma,
+                                        G2pt(t)), msm2, frs([2, 3]), G2s([4])),
+        ("QuadEqu", lambda t: ST.QuadEqu(frs([43]), frs([0, 47]), gamma,
+                                          frs([t])[:, 0]),
+         quad, frs([2, 3]), frs([4])),
+    ]
+
+
+def run_e2e(device, shapes):
+    """gs-e2e: generate_crs, then for each of the four equations
+    commit_and_prove and verify (must hold), and verify with target + 1
+    (must fail)."""
+    from groth_sahai_tpu_torch.models.crs import generate_crs
+    from groth_sahai_tpu_torch.models.prover import commit_and_prove
+    from groth_sahai_tpu_torch.models.verifier import verify
+    from groth_sahai_tpu_torch.utils.rng import GsRng
+
+    def run():
+        crs = generate_crs(GsRng(SEED + 20), device=device)
+        cases = e2e_cases(crs, device)
+        sync()
+        out = []
+        for k, (name, make, t, X, Y) in enumerate(cases):
+            proof = commit_and_prove(make(t), X, Y, crs, GsRng(SEED + 21 + k))
+            out.append((name, verify(make(t), proof, crs),
+                        verify(make(t + 1), proof, crs)))
+        return out
+
+    reset_counts()
+    with recording(shapes):
+        t0 = time.perf_counter()
+        out = run()
+        sync()
+        secs = time.perf_counter() - t0
+    counts = read_counts()
+    t0 = time.perf_counter()
+    for name, good, bad in out:
+        if not good or bad:
+            raise AssertionError(f"gs-e2e: {name} verifies {good}, with a "
+                                 f"wrong target {bad}")
+    print(f"[gs-e2e] {', '.join(n for n, _, _ in out)}: {secs:.3f} s with "
+          f"the host's CRS and targets; each verifies, and fails with a "
+          f"wrong target", flush=True)
+    return counts, secs, time.perf_counter() - t0, run
+
+
+def run_ppe_8x8(device, rng, shapes):
+    """prove-verify-ppe-8x8: a PPE with m = n = PPE_SIDE over random
+    discrete logs (X_i = x_i p1, Y_j = y_j p2, A_j, B_i likewise, random
+    Gamma), target gt^(sum x_i b_i + sum a_j y_j + sum Gamma_ij x_i y_j);
+    commit_and_prove, verify (must hold), then verify with pi's first
+    element replaced by p2 (must fail)."""
+    from groth_sahai_tpu_torch.ops import bls12_381 as C
+    from groth_sahai_tpu_torch.ops.curve import (g1_affine_from_ints,
+                                                 g1_affine_to_ints,
+                                                 g2_affine_from_ints,
+                                                 g2_affine_to_ints)
+    from groth_sahai_tpu_torch.ops.fp import FR
+    from groth_sahai_tpu_torch.ops.tower import FQ12
+    from groth_sahai_tpu_torch.models import statement as ST
+    from groth_sahai_tpu_torch.models.crs import generate_crs
+    from groth_sahai_tpu_torch.models.prover import commit_and_prove
+    from groth_sahai_tpu_torch.models.verifier import verify
+    from groth_sahai_tpu_torch.utils import hostcrypto as H
+    from groth_sahai_tpu_torch.utils.rng import GsRng
+    m = n = PPE_SIDE
+    crs = generate_crs(GsRng(SEED + 30), device=device)
+    g1 = g1_affine_to_ints(crs.g1_gen)[0]
+    g2 = g2_affine_to_ints(crs.g2_gen)[0]
+    gt = FQ12.to_ints(crs.gt_gen[:, :, None])[0]
+    x, b = ([rng.randrange(C.R) for _ in range(m)] for _ in range(2))
+    y, a = ([rng.randrange(C.R) for _ in range(n)] for _ in range(2))
+    gam = [[rng.randrange(C.R) for _ in range(n)] for _ in range(m)]
+    e = (sum(xi * bi for xi, bi in zip(x, b))
+         + sum(aj * yj for aj, yj in zip(a, y))
+         + sum(gam[i][j] * x[i] * y[j] for i in range(m) for j in range(n)))
+    G1s = lambda ks: g1_affine_from_ints([H.g1_mul(g1, k) for k in ks],
+                                         device=device)
+    G2s = lambda ks: g2_affine_from_ints([H.g2_mul(g2, k) for k in ks],
+                                         device=device)
+    equ = ST.PPE(G1s(a), G2s(b), fr_limbs(sum(gam, []), device).reshape(
+        FR.n, m, n), FQ12.from_ints([H.f12_pow(gt, e % C.R)],
+                                    device=device)[:, :, 0])
+    X, Y = G1s(x), G2s(y)
+    sync()
+
+    def run():
+        proof = commit_and_prove(equ, X, Y, crs, GsRng(SEED + 31))
+        good = verify(equ, proof, crs)
+        pi = proof.equ_proofs[0].pi
+        bad_pi = tuple(c.clone() for c in pi)
+        for c in range(3):                   # pi[0][0] <- p2 = crs.v[0][0]
+            bad_pi[c][..., 0, 0] = crs.v[c][..., 0, 0]
+        proof.equ_proofs[0].pi = bad_pi
+        return good, verify(equ, proof, crs)
+
+    reset_counts()
+    with recording(shapes):
+        t0 = time.perf_counter()
+        good, bad = run()
+        sync()
+        secs = time.perf_counter() - t0
+    counts = read_counts()
+    if not good or bad:
+        raise AssertionError(f"prove-verify-ppe-8x8: verifies {good}, with "
+                             f"pi changed {bad}")
+    print(f"[prove-verify-ppe-8x8] m = n = {m} (K = {n + 2 * m + 4} Miller "
+          f"pairs): {secs:.3f} s; verifies, and fails with pi changed",
+          flush=True)
+    return counts, secs, 0.0, run
+
+
+def run_gs_paths(device, mult1, rng, phases, by_path, shapes, runs):
+    """Phase 3, the commit / prove / verify paths (see run_paths)."""
+    from groth_sahai_tpu_torch.models.crs import generate_crs
+    from groth_sahai_tpu_torch.utils.rng import GsRng
+    seed = SEED + 10
+    crs = generate_crs(GsRng(seed), device=device)
+    k1, k2, _ = crs_logs(seed)
+    for k, path in enumerate(("commit-g1-334", "commit-g2-334",
+                              "commit-scalar-b1-334",
+                              "commit-scalar-b2-334")):
+        out = run_commit(path, device, (crs, (k1, k2), SEED + 11 + k), rng,
+                         shapes[path])
+        by_path[path], phases[path], phases[path + "_checks"], runs[path] = out
+    path = "scalar-mul-g1-4096"
+    out = run_scalar_mul(device, mult1, rng, shapes[path])
+    by_path[path], phases[path], phases[path + "_checks"], runs[path] = out
+    path = "gs-e2e"
+    by_path[path], phases[path], phases[path + "_checks"], runs[path] = \
+        run_e2e(device, shapes[path])
+    path = "prove-verify-ppe-8x8"
+    by_path[path], phases[path], _, runs[path] = run_ppe_8x8(device, rng,
+                                                             shapes[path])
+
+
 # ----------------------------------------------------------------- phase 5
 
 def bound_ms(name: str, lanes: int, args) -> tuple:
@@ -694,8 +1185,10 @@ def bound_ms(name: str, lanes: int, args) -> tuple:
     + 12 post-reductions), a cyclotomic square 30 (18 + 12), a Miller
     doubling iteration 176 (66 for f^2, 49 for the point step, 4 to scale
     the line, 57 for the sparse product), an addition iteration 126 (65 +
-    4 + 57). The chains count what this input needs: a square per bit, a
-    product per set bit (for f12_pow_dyn, each lane's own scalar bits)."""
+    4 + 57); a complete mixed add 11, a complete doubling 8, a complete
+    add 12 (each Fq2 product on G2 five). The chains count what this
+    input needs: a square per bit, a product per set bit (for f12_pow_dyn,
+    each lane's own scalar bits)."""
     from groth_sahai_tpu_torch.ops import cuda_fp as K
     from groth_sahai_tpu_torch.ops import cuda_tower as CT
     from groth_sahai_tpu_torch.ops.fp import FQ, FR
@@ -711,6 +1204,20 @@ def bound_ms(name: str, lanes: int, args) -> tuple:
         s = args[-1].expand((FR.n,) + args[0].shape[2:]).reshape(FR.n, -1)
         set_bits = sum(int(((s >> b) & 1).sum()) for b in range(16))
         products = (CT.POW_DYN_NBITS * 66 + set_bits * 66 / lanes) * mont
+    elif name in CURVE:
+        # an Fq2 product is 5 Montgomery products (3 Karatsuba + 2
+        # post-reductions); cmadd 11 products, a doubling 8, an add 12;
+        # coordinates: 5 in + 3 out (cmadd, plus one flag byte a lane),
+        # 6 in + 3 out (cdbl_n_add)
+        ns = args[-1].ns
+        per = 11 if name == "cmadd" else 8 * args[1] + 12
+        products = per * (5 if ns == 2 else 1) * mont
+        coords = 8 if name == "cmadd" else 9
+        t_bytes = (coords * n * ns * 8 + (name == "cmadd")) * lanes \
+            / PEAK_BYTES_PER_S * 1e3
+        t_ops = products * lanes / PEAK_IMAD_PER_S * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
     else:
         products = {"mont_mul": mont, "mul_wide": n * n, "redc": n * n,
                     "fq12_mul": 66 * mont, "cyc_sqr": 30 * mont,
@@ -749,28 +1256,31 @@ def kernel_report(worst, timing, counts, by_path):
     rows = []
     for name, (replaces, source) in ORIGIN.items():
         lanes = PATH_LANES[name]
+        main = MAIN_FIELD.get(name, "Fq")
         ms, wrapper_ms, plain_ms, bound, by = time_kernel(
-            name, lanes, timing[name, lanes])
+            name, lanes, timing[name, main, lanes])
         row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": worst[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None, "lanes": lanes, "wrapper_ms": wrapper_ms,
+            "library_ms": None, "lanes": lanes, "field": main,
+            "wrapper_ms": wrapper_ms,
             "launches_by_path": {path: c[name] for path, c in by_path.items()},
         }
-        print(f"[report] {name:15s} lanes={lanes:6d} device {ms:.4f} ms per "
-              f"launch (wrapper {wrapper_ms:.4f} ms per call, plain "
+        print(f"[report] {main} {name:15s} lanes={lanes:6d} device {ms:.4f} "
+              f"ms per launch (wrapper {wrapper_ms:.4f} ms per call, plain "
               f"{plain_ms:.4f} ms), bound {bound:.5f} ms by {by}", flush=True)
-        if name in ALSO_TIMED:
-            m = ALSO_TIMED[name]
-            t = time_kernel(name, m, timing[name, m])
-            row["also"] = dict(zip(("lanes", "ms", "wrapper_ms", "plain_ms",
-                                    "bound_ms", "bound_by"), (m,) + t))
-            print(f"[report] {name:15s} lanes={m:6d} device {t[0]:.4f} ms per "
-                  f"launch (wrapper {t[1]:.4f} ms per call, plain "
-                  f"{t[2]:.4f} ms), bound {t[3]:.5f} ms by {t[4]}",
-                  flush=True)
+        row["also"] = []
+        for fname, m in ALSO_TIMED.get(name, []):
+            t = time_kernel(name, m, timing[name, fname, m])
+            row["also"].append(dict(zip(
+                ("field", "lanes", "ms", "wrapper_ms", "plain_ms", "bound_ms",
+                 "bound_by"), (fname, m) + t)))
+            print(f"[report] {fname} {name:15s} lanes={m:6d} device "
+                  f"{t[0]:.4f} ms per launch (wrapper {t[1]:.4f} ms per "
+                  f"call, plain {t[2]:.4f} ms), bound {t[3]:.5f} ms by "
+                  f"{t[4]}", flush=True)
         rows.append(row)
     return rows
 
@@ -829,7 +1339,8 @@ def signed_mask(k: int, rhs: int, rng):
 
 
 def run_paths(device, mult1, mult2, rng, phases):
-    """Phase 3: the five paths. Returns (launch counts by path, the launch
+    """Phase 3: the five pairing paths, then the commit, scalar-mul and
+    prove / verify paths. Returns (launch counts by path, the launch
     shapes by path, a callable re-running each path for its profile)."""
     from groth_sahai_tpu_torch.models import kernels as MK
     from groth_sahai_tpu_torch.ops.pairing import gt_exp, pairing
@@ -857,6 +1368,7 @@ def run_paths(device, mult1, mult2, rng, phases):
     by_path["gt-exp-4096"] = c
     runs["gt-exp-4096"] = lambda: (gt_exp(g[0], g[2].reshape(
         g[2].shape[0], EQUATIONS, 1, 1)), gt_exp(g[1], g[2]))
+    run_gs_paths(device, mult1, rng, phases, by_path, shapes, runs)
     return by_path, shapes, runs
 
 
@@ -901,7 +1413,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        from groth_sahai_tpu_torch.ops import cuda_build, cuda_fp, cuda_tower
+        from groth_sahai_tpu_torch.ops import (cuda_build, cuda_curve, cuda_fp,
+                                               cuda_tower)
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable ({exc}); run it from "
               f"the repository's root", file=sys.stderr)
@@ -911,7 +1424,8 @@ def main() -> int:
     try:
         device = torch.device("cuda", 0)
         t0 = time.perf_counter()
-        libs = cuda_build.build_all([cuda_fp.LIBRARY, cuda_tower.LIBRARY])
+        libs = cuda_build.build_all([cuda_fp.LIBRARY, cuda_tower.LIBRARY,
+                                     cuda_curve.LIBRARY])
         phases["build"] = time.perf_counter() - t0
         card = card_line()
         for lib in libs:      # ptxas: each kernel's registers and stack

@@ -15,7 +15,7 @@
 //   * mont_mul needs value(a) * value(b) <= 2^16 p^2; output < 2p;
 //   * redc needs t < p R (2N+1 exact limbs); output < 2p;
 //   * sub(a, b, kp) = sub_k(a, b, k) = a - b + k p needs bound(b) <= k p.
-// add, sub, sub_k, neg_k, mul_small and dbl read limb j before
+// add, sub, sub_k, neg_k, mul_small, select and dbl read limb j before
 // they write it, so `out` may be one of the inputs.
 // The Montgomery output is the unique (t + M p) / R with M = -t p^-1 mod R
 // and no final subtraction, so it equals the plain version limb for limb.
@@ -140,6 +140,15 @@ __device__ __forceinline__ void mul_small(const uint32_t (&a)[N], uint32_t k,
     out[j] = v & kMask;
     c = v >> kW;
   }
+}
+
+// mask ? a : b, limb by limb (pallas_reg.select); `out` may be a or b.
+template <int N>
+__device__ __forceinline__ void select(bool mask, const uint32_t (&a)[N],
+                                       const uint32_t (&b)[N],
+                                       uint32_t (&out)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) out[j] = mask ? a[j] : b[j];
 }
 
 // 2 a with exact limbs. Bound: 2 bound(a).

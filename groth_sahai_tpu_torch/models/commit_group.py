@@ -1,14 +1,19 @@
-"""The GS commitment-group algebra: affine batch helpers (first part).
+"""The GS commitment-group algebra: B1 (= G1^2), B2 (= G2^2), BT (= GT^4).
 
-The part of ``groth_sahai_tpu/models/commit_group.py`` that the verifier's
-signed Miller product and the verifier's last comparison need. Shape
-conventions (the reference's): an affine point batch is (x, y, inf); `inf`
-carries the pure batch shape; coordinate tensors prepend the field
-structure axes ((nl,) for G1, (nl, 2) for G2), and `curve.ns` counts them
-so helpers stay generic over G1/G2. A Com1 vector of length k is a G1
-affine batch with batch shape (2, k); a Com2 vector likewise over G2. A
-ComT is a (2, 2) matrix of GT elements, (nl, 12, 2, 2). The rest of the
-module (iota maps, com_matvec) waits for the commit/prove slice.
+The port of ``groth_sahai_tpu/models/commit_group.py``. Structure of
+arrays everywhere (the reference's shapes):
+
+  * a Com1 vector of length k = G1 affine batch with batch shape (2, k)
+    (axis 0 = the B1 pair component, axis 1 = the vector index);
+  * a Com2 vector likewise over G2;
+  * a ComT batch = Fq12 coefficient tensor with batch shape (2, 2).
+
+An affine point batch is (x, y, inf); `inf` carries the pure batch shape;
+coordinate tensors prepend the field structure axes ((nl,) for G1, (nl, 2)
+for G2), and `curve.ns` counts them so helpers stay generic over G1/G2.
+
+Linear maps: iota(x) = (O, x); iota'(x) = x (u2 + (O, g)); the ComT
+pairings are 2x2 (multi-)pairings.
 """
 
 from __future__ import annotations
@@ -25,6 +30,16 @@ def aff_map(curve, a, coord_fn, inf_fn):
     return (coord_fn(x), coord_fn(y), inf_fn(inf))
 
 
+def aff_bcast(curve, a, batch_shape):
+    """Broadcast an affine point (batch ()) over `batch_shape`."""
+    nb = len(batch_shape)
+    bs = tuple(batch_shape)
+    return aff_map(
+        curve, a,
+        lambda l: l.reshape(l.shape + (1,) * nb).expand(l.shape + bs),
+        lambda i: i.reshape(i.shape + (1,) * nb).expand(i.shape + bs))
+
+
 def aff_expand(curve, a, axis, size):
     """Insert and broadcast a new batch axis at batch position `axis`."""
     ns = curve.ns
@@ -39,6 +54,102 @@ def aff_expand(curve, a, axis, size):
         return i2.expand(i2.shape[:axis] + (size,) + i2.shape[axis + 1:])
 
     return aff_map(curve, a, cf, inf_f)
+
+
+def aff_index(curve, a, axis, i):
+    """Index batch axis `axis` at position i."""
+    ns = curve.ns
+    return aff_map(curve, a, lambda l: l.select(ns + axis, i),
+                   lambda f: f.select(axis, i))
+
+
+def aff_slice0(curve, a, axis, stop):
+    """Slice batch axis `axis` to [0, stop)."""
+    ns = curve.ns
+    return aff_map(curve, a, lambda l: l.narrow(ns + axis, 0, stop),
+                   lambda f: f.narrow(axis, 0, stop))
+
+
+def aff_stack(curve, elems, axis=0):
+    """Stack affine batches along a new batch axis."""
+    ns = curve.ns
+    return (torch.stack([e[0] for e in elems], ns + axis),
+            torch.stack([e[1] for e in elems], ns + axis),
+            torch.stack([e[2] for e in elems], axis))
+
+
+def aff_concat(curve, elems, axis=0):
+    """Concatenate affine batches along existing batch axis `axis`."""
+    ns = curve.ns
+    return (torch.cat([e[0] for e in elems], ns + axis),
+            torch.cat([e[1] for e in elems], ns + axis),
+            torch.cat([e[2] for e in elems], axis))
+
+
+# ---------------------------------------------------------------------------
+# iota linear maps
+# ---------------------------------------------------------------------------
+
+def iota(curve, pts):
+    """iota(x) = (O, x): affine batch (*b,) -> Com batch (2, *b)."""
+    x, y, inf = pts
+    ns = curve.ns
+    cx = torch.stack([torch.zeros_like(x), x], ns)
+    cy = torch.stack([torch.zeros_like(y), y], ns)
+    cinf = torch.stack([torch.ones_like(inf), inf], 0)
+    return (cx, cy, cinf)
+
+
+def iota_prime_base(curve, key_vec, gen):
+    """u2 + (O, g): the fixed Com element scaling scalar commitments.
+
+    key_vec: CRS u (or v) as a Com vector (2, 2); gen: group generator ().
+    Returns a Com element, batch (2,).
+    """
+    u2 = aff_index(curve, key_vec, 1, 1)         # Com element (2,)
+    og = iota(curve, aff_bcast(curve, gen, ()))  # (2,)
+    j = curve.add(curve.from_affine(u2), curve.from_affine(og))
+    return curve.to_affine(j)
+
+
+def iota_prime(curve, base_elem, scalars_std):
+    """iota'(x) = x * (u2 + (O, g)): scalars (17, m) -> Com batch (2, m)."""
+    m = scalars_std.shape[-1]
+    b = aff_bcast(curve, base_elem, (m,))        # (2, m)
+    return curve.scalar_mul(b, scalars_std[:, None, :])   # Jacobian (2, m)
+
+
+# ---------------------------------------------------------------------------
+# Com arithmetic (the reference's Mat<Com> ops)
+# ---------------------------------------------------------------------------
+
+def com_matvec(curve, scal_std, com_vec):
+    """(I, K) Fr matrix x Com vector (2, K) -> Com vector (2, I), Jacobian.
+
+    scal_std: int64[17, I, K] standard-form scalars. For K < 16 (the
+    reference's small-K branch): one batched windowed scalar-mul over
+    (2, I, K) plus a tree reduction over K. For K >= 16 the reference takes
+    a vmapped Pippenger MSM, which the port does not have yet.
+    """
+    I, K = scal_std.shape[1], scal_std.shape[2]
+    if K >= 16:
+        raise NotImplementedError(
+            f"com_matvec with K = {K} >= 16 takes the Pippenger MSM "
+            f"(ops/msm.py), which is not ported yet")
+    pts = aff_expand(curve, com_vec, 1, I)       # (2, I, K)
+    prods = curve.scalar_mul(pts, scal_std[:, None, :, :])   # Jacobian
+    return curve.sum_reduce(prods, axis=2)       # Jacobian (2, I)
+
+
+def com_collapse(curve, scal_std, com_vec):
+    """sum_k s_k * C_k: scalars (17, K) x Com (2, K) -> Com element (2,)."""
+    prods = curve.scalar_mul(com_vec, scal_std[:, None, :])
+    return curve.sum_reduce(prods, axis=1)
+
+
+def com_add_aff(curve, a, b):
+    return curve.to_affine(curve.add(curve.from_affine(a),
+                                     curve.from_affine(b)))
 
 
 # ---------------------------------------------------------------------------

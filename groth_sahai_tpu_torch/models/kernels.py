@@ -1,25 +1,25 @@
-"""The verifier's heavy primitives: padding and the signed Miller product.
+"""The protocol layer's heavy primitives: padding, Com products, the Fr
+matrix algebra and the signed Miller product.
 
-The part of ``groth_sahai_tpu/models/kernels.py`` on the verification
-path. The reference pads every variable-length axis to a power of two so
-that XLA compiles one executable per size bucket; the port keeps the same
-padding (points at infinity contribute the identity to a Miller product),
-so both packages run the same batch shapes, and so take the same kernels
-at each size. The Miller batch is (2, 2, Kp), 4 Kp lanes:
+The port of ``groth_sahai_tpu/models/kernels.py``. The reference pads every
+variable-length axis to a power of two so that XLA compiles one executable
+per size bucket; the port keeps the same padding (points at infinity and
+zero scalars are neutral in sums, and contribute the identity to a Miller
+product), so both packages run the same batch shapes, and so take the same
+kernels at each size. No jit: PyTorch runs eagerly.
 
-  * Kp <= 1024 (at most 4096 lanes; `verify` of a PPE with m = n = 334
-    has K = 1006, Kp = 1024): each of the 63 + 5 Miller iterations is one
-    launch of the fused `miller_iter_dbl` / `miller_iter_add`; the tree
-    reduction and the final exponentiation take `fq12_mul` and `cyc_pow`.
-  * Kp >= 2048: the Miller loop runs the lazy tower over the field
-    kernels (`mont_mul`, `mul_wide`, `redc`); the tree reduction from
-    (2, 2, Kp / 2) takes `fq12_mul` once it is at most 4096 lanes, and the
-    final exponentiation on (2, 2) `fq12_mul`, `cyc_pow` and `pow_const`.
-
+  * `com_matvec`, `iota_prime`, `scalar_mul_vec` run `Curve.scalar_mul`
+    (the fused `cmadd` / `cdbl_n_add` kernels) on padded batches;
+  * the Miller batch of `miller_product_signed` is (2, 2, Kp), 4 Kp lanes:
+    for Kp <= 1024 (at most 4096 lanes; `verify` of a PPE with m = n = 334
+    has K = 1006, Kp = 1024) each of the 63 + 5 Miller iterations is one
+    launch of the fused `miller_iter_dbl` / `miller_iter_add`, and the tree
+    reduction and the final exponentiation take `fq12_mul` and `cyc_pow`;
+    for Kp >= 2048 the Miller loop runs the lazy tower over the field
+    kernels (`mont_mul`, `mul_wide`, `redc`);
   * the verifier's five pairing_sum terms plus the rhs fold become ONE
-    signed Miller product (`miller_product_signed`) whose conjugation mask
-    is data;
-  * `final_exp` then runs once on the (2, 2) ComT shape.
+    signed Miller product whose conjugation mask is data, and `final_exp`
+    runs once on the (2, 2) ComT shape.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.fp import FR
 from ..ops.tower import FQ12
 from ..ops.curve import G1, G2
 from ..ops import pairing as pr
@@ -55,6 +56,99 @@ def pad_aff(curve, a, axis: int, to: int):
         return torch.cat([i, i.new_ones(shape)], axis)
 
     return (padc(a[0]), padc(a[1]), padi(a[2]))
+
+
+def pad_scal(s, axis: int, to: int):
+    """Pad a scalar-limb tensor's batch axis with zeros (axis counts from the
+    limb axis: axis=1 is the first batch axis)."""
+    n = s.shape[axis]
+    if n == to:
+        return s
+    shape = list(s.shape)
+    shape[axis] = to - n
+    return torch.cat([s, s.new_zeros(shape)], axis)
+
+
+def com_matvec(curve, scal_std, com_vec):
+    """Padded (I, K) x Com(2, K) -> Jacobian Com(2, I)."""
+    K = scal_std.shape[2]
+    Kp = next_pow2(K)
+    return cg.com_matvec(curve, pad_scal(scal_std, 2, Kp),
+                         pad_aff(curve, com_vec, 1, Kp))
+
+
+def to_affine(curve, jac):
+    return curve.to_affine(jac)
+
+
+def point_add(curve, a, b):
+    return curve.add(a, b)
+
+
+def scalar_mul(curve, pts, scal):
+    return curve.scalar_mul(pts, scal)
+
+
+def iota_prime(curve, base_elem, scalars_std, m: int | None = None):
+    """iota'(x), padded to pow2 and sliced back to m."""
+    m = scalars_std.shape[-1] if m is None else m
+    out = cg.iota_prime(curve, base_elem,
+                        pad_scal(scalars_std, 1, next_pow2(m)))
+    return tuple(l.narrow(curve.ns + 1, 0, m) for l in out)
+
+
+def scalar_mul_vec(curve, pts, scal_vec):
+    """[s_i] P_i over a Com-style (2, m) batch, padded to pow2 and sliced.
+
+    scal_vec: int64[17, m] (one scalar per vector element).
+    """
+    m = pts[2].shape[-1]
+    mp = next_pow2(m)
+    out = curve.scalar_mul(pad_aff(curve, pts, 1, mp),
+                           pad_scal(scal_vec, 1, mp)[:, None, :])
+    return tuple(l.narrow(curve.ns + 1, 0, m) for l in out)
+
+
+def fr_matmul_std(a_std, b_std):
+    """(I, K) x (K, J) Fr matmul on std-form limbs; canonical std output.
+
+    One wide-domain product batch + tree add + single redc per entry
+    (mont(a) * std(b) -> std(a*b)).
+    """
+    am = FR.to_mont(a_std)                       # (17, I, K)
+    wide = FR.mul_wide(am[:, :, :, None], b_std[:, None, :, :])  # (35,I,K,J)
+    s = _add_wide_reduce(wide, axis=2)           # contract K (array axis 2)
+    return FR.normalize(FR.redc(s), k=2)
+
+
+def _add_wide_reduce(w, axis):
+    """Tree-sum wide values along ARRAY axis `axis` (axis 0 is limbs)."""
+    size = w.shape[axis]
+    while size > 1:
+        half = size // 2
+        s = FR.add_wide(w.narrow(axis, 0, half), w.narrow(axis, half, half))
+        if size % 2:
+            s = torch.cat([s, w.narrow(axis, 2 * half, 1)], axis)
+            size = half + 1
+        else:
+            size = half
+        w = s
+    return w.select(axis, 0)
+
+
+def fr_transpose(a_std):
+    return a_std.transpose(1, 2)
+
+
+def fr_sub_std(a_std, b_std):
+    """Canonical a - b mod r on std limbs."""
+    return FR.normalize(FR.sub(a_std, b_std, k=2), k=4)
+
+
+def fr_matmul(a_std, b_std):
+    """Fr matmul with the contraction axis padded to pow2."""
+    Kp = next_pow2(a_std.shape[2])
+    return fr_matmul_std(pad_scal(a_std, 2, Kp), pad_scal(b_std, 1, Kp))
 
 
 def _miller_product_signed(P, Q, conj_mask):

@@ -1,0 +1,284 @@
+"""Hand-written Hopper kernels of the curve group law, with their plain
+versions.
+
+The port of two kernels of ``groth_sahai_tpu/ops/pallas_curve.py``, written
+in CUDA C++ for ``sm_90a`` in ``csrc/curve_kernels.cu`` over the in-thread
+group law ``csrc/curve.cuh`` (on ``csrc/tower.cuh`` and ``csrc/field.cuh``):
+
+  ==========  ====================================  ==========================
+  wrapper     replaces (TPU kernel)                 computes
+  ==========  ====================================  ==========================
+  cmadd       pallas_curve.py:cmadd                 P + A, P projective, A
+                                                    affine (complete, RCB16)
+  cdbl_n_add  pallas_curve.py:cdbl_n_add            2^n P + Q, projective
+  ==========  ====================================  ==========================
+
+Both run for G1 (coordinates int64[25, *batch]) and G2 (int64[25, 2,
+*batch]); affine infinity flags are a bool batch. Coordinates are < 4p in
+and out; affine inputs < 2p. `Curve.scalar_mul` builds its window table
+with 14 `cmadd` launches and runs its 64 window steps as `cdbl_n_add` with
+n = 4.
+
+The kernels' arithmetic is the reference's fused bodies (`_cmadd_body`,
+`_cdbl_body`, `_cadd_body`): Montgomery products (for Fq2 the Karatsuba
+product post-reduced by R mod p), the b3 products as x12 (after the xi
+twist for G2), the reference's k*p offsets. Those limbs are another
+redundant form than the unfused law of `ops/proj.py` in the reference
+(which multiplies by a Montgomery constant 3b), so results agree with it by
+value.
+
+What bounds them on the H100: 11 (G1) or 55 (G2) Montgomery products per
+lane for `cmadd`, 44 or 220 for `cdbl_n_add` at n = 4, against at most
+1.8 KB of int64 limbs moved per lane: the multiplier; at the few thousand
+lanes of their calls one thread per lane leaves most of the card idle.
+
+Dispatch rule: a CPU tensor runs the plain PyTorch version; a CUDA tensor
+launches the kernel or raises. Each wrapper counts its launches in
+``launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .cuda_build import KernelLibrary, check, host_words, lanes, on_cpu, stream
+from .cuda_fp import mont_mul_plain
+from .cuda_tower import _post_red
+from .fp import FQ
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+_U32 = ctypes.c_uint32
+LIBRARY = KernelLibrary("gs_curve", "curve_kernels.cu",
+                        ["curve.cuh", "tower.cuh", "field.cuh"], {
+    "gs_cmadd": [_I, _I] + [_P] * 9 + [_I64, _P, _P, _U32, _P],
+    "gs_cdbl_n_add": [_I, _I, _I] + [_P] * 9 + [_I64, _P, _P, _U32, _P],
+})
+
+
+# ---------------------------------------------------------------- plain versions
+#
+# The kernels' bodies on tensors, step for step: every value is the kernel's
+# integer, so the limbs agree. Independent products of a step are stacked
+# into one Montgomery product, and the adds, k*p subtractions and small
+# multiples of a step are summed as columns and carried together (the same
+# integers as the kernel's one-op-at-a-time chain; each subtraction of an
+# exact value adds one 2^(16 n) complement, which carries out of the top).
+# A value is G1 (25, *S) or G2 (25, 2, *S).
+
+def _exact(*cols):
+    """The exact 16-bit limbs of non-negative column tensors of one shape
+    (each column < 2^24), in one carry."""
+    return FQ._carry(torch.stack(cols, 1), bits=24).unbind(1)
+
+
+def _kp(k: int, subtrahends: int, like):
+    """Columns of k p + s 2^(16 n), s = subtrahends: added to a sum before
+    subtracting s exact values, they keep every column non-negative."""
+    off = FQ._offset(k * FQ.p, FQ.n, like.ndim, like.device)
+    if subtrahends > 1:
+        off = off + (subtrahends - 1) * FQ._offset(0, FQ.n, like.ndim,
+                                                    like.device)
+    return off
+
+
+class _FqP:
+    """Fq adapter (pallas_curve._FqA)."""
+
+    @staticmethod
+    def products(lhs, rhs):
+        """Montgomery products lhs[i] * rhs[i] (< 2p), one stacked call."""
+        return mont_mul_plain(FQ, torch.stack(lhs, 1),
+                              torch.stack(rhs, 1)).unbind(1)
+
+    @staticmethod
+    def b3(a, k: int):
+        """Columns of a * 3b = 12 a (b = 4); a exact, k unused."""
+        return 12 * a
+
+    @staticmethod
+    def select(mask, a, b):
+        return torch.where(mask[None], a, b)
+
+
+class _Fq2P:
+    """Fq2 adapter (pallas_curve._Fq2A): products post-reduced to < 2p."""
+
+    @staticmethod
+    def products(lhs, rhs):
+        """Fq2 products lhs[i] * rhs[i]: the Karatsuba of _Fq2A.mul
+        (t0 - t1 + 2p, t2 - t0 - t1 + 4p), then each component times R mod
+        p (< 2p); one stacked Montgomery product for each of the two."""
+        a, b = torch.stack(lhs, 2), torch.stack(rhs, 2)    # (25, 2, k, *S)
+        sa, sb = _exact(a[:, 0] + a[:, 1], b[:, 0] + b[:, 1])
+        t0, t1, t2 = mont_mul_plain(
+            FQ, torch.stack([a[:, 0], a[:, 1], sa], 1),
+            torch.stack([b[:, 0], b[:, 1], sb], 1)).unbind(1)
+        c = torch.stack(_exact(t0 - t1 + _kp(2, 1, t0),
+                               t2 - t0 - t1 + _kp(4, 2, t0)), 1)
+        return _post_red(c).unbind(2)
+
+    @staticmethod
+    def b3(a, k: int):
+        """Columns of a * 3b' = 12 (u + 1) a: the xi twist, then x12; a
+        exact with bound(a) <= k p."""
+        return torch.stack([12 * (a[:, 0] - a[:, 1] + _kp(k, 1, a[:, 0])),
+                            12 * (a[:, 0] + a[:, 1])], 1)
+
+    @staticmethod
+    def select(mask, a, b):
+        return torch.where(mask[None, None], a, b)
+
+
+def _adapter(curve):
+    return _Fq2P if curve.ns == 2 else _FqP
+
+
+def _finish(F, t0, t1, t3, t4, Y3, Z3):
+    """X3 = t3 t1 - t4 Y3, Y3 = t1 Z3 + Y3 t0, Z3 = Z3 t4 + t0 t3 (< 4p)."""
+    a, b, c, d, e, g = F.products([t3, t4, t1, Y3, Z3, t0],
+                                  [t1, Y3, Z3, t0, t4, t3])
+    return _exact(a - b + _kp(2, 1, a), c + d, e + g)
+
+
+def _cmadd_body(F, X1, Y1, Z1, x2, y2, ainf):
+    """Complete mixed add (_cmadd_body); acc < 4p, affine < 2p, out < 4p.
+
+    Bound audit (units of p): t2 < 96, t1/Z3 < 98, Y3' < 144.
+    """
+    sa, sb = _exact(x2 + y2, X1 + Y1)
+    t0, t1, t3, yz, xz = F.products([X1, Y1, sa, y2, x2],
+                                    [x2, y2, sb, Z1, Z1])
+    t3, t4, Y3, t0, t2 = _exact(
+        t3 - t0 - t1 + _kp(4, 2, t3),                 # < 6p
+        yz + Y1,                                      # t4 < 6p
+        xz + X1,                                      # < 6p
+        3 * t0,                                       # < 6p
+        F.b3(Z1, 4))                                  # t2 < 96p
+    Z3, t1, Y3 = _exact(
+        t1 + t2,                                      # < 98p
+        t1 - t2 + _kp(96, 1, t1),                     # < 98p
+        F.b3(Y3, 8))                                  # < 144p
+    X3, Y3, Z3 = _finish(F, t0, t1, t3, t4, Y3, Z3)
+    return (F.select(ainf, X1, X3), F.select(ainf, Y1, Y3),
+            F.select(ainf, Z1, Z3))
+
+
+def _cadd_body(F, X1, Y1, Z1, X2, Y2, Z2):
+    """Complete projective add (_cadd_body); coords < 4p in and out."""
+    s = _exact(X1 + Y1, X2 + Y2, Y1 + Z1, Y2 + Z2, X1 + Z1, X2 + Z2)
+    t0, t1, t2, t3, t4, Y3 = F.products([X1, Y1, Z1, s[0], s[2], s[4]],
+                                        [X2, Y2, Z2, s[1], s[3], s[5]])
+    t3, t4, Y3, t0, t2 = _exact(
+        t3 - t0 - t1 + _kp(4, 2, t3),                 # < 6p
+        t4 - t1 - t2 + _kp(4, 2, t4),                 # < 6p
+        Y3 - t0 - t2 + _kp(4, 2, Y3),                 # < 6p
+        3 * t0,                                       # < 6p
+        F.b3(t2, 2))                                  # < 48p
+    Z3, t1, Y3 = _exact(
+        t1 + t2,                                      # < 50p
+        t1 - t2 + _kp(48, 1, t1),                     # < 50p
+        F.b3(Y3, 8))                                  # < 144p
+    return _finish(F, t0, t1, t3, t4, Y3, Z3)
+
+
+def _cdbl_body(F, X, Y, Z):
+    """Complete doubling (_cdbl_body); coords < 4p in, (<4p, <4p, <2p) out."""
+    t0, t1, zz, xy = F.products([Y, Y, Z, X], [Y, Z, Z, Y])
+    Z3, t2 = _exact(8 * t0, F.b3(zz, 2))              # < 16p, < 48p
+    Y3, t0 = _exact(t0 + t2,                          # < 50p
+                    t0 - 3 * t2 + _kp(144, 3, t0))    # < 146p
+    X3, Z3, u, v = F.products([t2, t1, t0, t0], [Z3, Z3, Y3, xy])
+    X3, Y3 = _exact(2 * v, X3 + u)                    # < 4p, < 4p
+    return X3, Y3, Z3                                 # Z3 < 2p
+
+
+def cmadd_plain(p, a, curve):
+    coords, (ainf,), _ = _broadcast(curve, [*p, a[0], a[1]], [a[2]])
+    return _cmadd_body(_adapter(curve), *coords, ainf)
+
+
+def cdbl_n_add_plain(p, n_dbl: int, q, curve):
+    coords, _, _ = _broadcast(curve, [*p, *q])
+    F = _adapter(curve)
+    p = coords[:3]
+    for _ in range(n_dbl):
+        p = _cdbl_body(F, *p)
+    return _cadd_body(F, *p, *coords[3:])
+
+
+# --------------------------------------------------------------------- wrappers
+
+def _broadcast(curve, coords, flags=()):
+    """Expand coordinates and flags to one batch shape."""
+    ns = curve.ns
+    batch = torch.broadcast_shapes(*(c.shape[ns:] for c in coords),
+                                   *(f.shape for f in flags))
+    return ([c.expand(c.shape[:ns] + batch) for c in coords],
+            [f.expand(batch) for f in flags], batch)
+
+
+def _launch(wrapper, curve, coords, batch, scalars=(), flags=()):
+    """Launch the kernel of `wrapper` over the lanes of `batch` and count
+    it; returns (X3, Y3, Z3)."""
+    name = wrapper.__name__
+    n = FQ.n
+    rows = n * curve.ns
+    ins = [lanes(c, n, f"{name} {curve.name}").reshape(rows, -1)
+           for c in coords]
+    m = ins[0].shape[1]
+    outs = [torch.empty_like(ins[0]) for _ in range(3)]
+    if m:
+        fn = getattr(LIBRARY.get(), "gs_" + name)
+        check(fn(n, curve.ns, *scalars,
+                 *(x.data_ptr() for x in ins + list(flags) + outs), m,
+                 host_words(FQ, FQ.p), host_words(FQ, FQ.r_mod_p), FQ.n0,
+                 stream(ins[0])), name, n)
+        wrapper.launches += 1
+    shape = coords[0].shape[:curve.ns] + tuple(batch)
+    return tuple(o.reshape(shape) for o in outs)
+
+
+def cmadd(p, a, curve):
+    """Complete projective + affine addition P + A as one launch.
+
+    Replaces pallas_curve.py:cmadd (_cmadd_kernel). p = (X, Y, Z) with
+    coordinates < 4p; a = (x, y, inf) affine, x, y < 2p; where inf is set
+    the result is P. Batch shapes broadcast; the kernel takes contiguous
+    copies. Output coordinates < 4p.
+    """
+    if on_cpu(*p, *a):
+        return cmadd_plain(p, a, curve)
+    coords, (ainf,), batch = _broadcast(curve, [*p, a[0], a[1]], [a[2]])
+    if ainf.device.type != "cuda" or ainf.dtype != torch.bool:
+        raise ValueError(f"cmadd flags: expected a CUDA tensor of bool, got "
+                         f"{ainf.dtype} on {ainf.device}")
+    return _launch(cmadd, curve, coords, batch,
+                   flags=[ainf.contiguous().reshape(-1)])
+
+
+def cdbl_n_add(p, n_dbl: int, q, curve):
+    """n_dbl complete doublings of P, then P + Q, as one launch.
+
+    Replaces pallas_curve.py:cdbl_n_add (_cdbl_n_add_kernel). Projective
+    p, q with coordinates < 4p; output < 4p. Batch shapes broadcast.
+    """
+    assert n_dbl >= 0
+    if on_cpu(*p, *q):
+        return cdbl_n_add_plain(p, n_dbl, q, curve)
+    coords, _, batch = _broadcast(curve, [*p, *q])
+    return _launch(cdbl_n_add, curve, coords, batch, scalars=(n_dbl,))
+
+
+KERNELS = (cmadd, cdbl_n_add)
+PLAIN = {cmadd: cmadd_plain, cdbl_n_add: cdbl_n_add_plain}
+for _k in KERNELS:
+    _k.launches = 0
+
+
+def reset_counts():
+    for k in KERNELS:
+        k.launches = 0

@@ -65,9 +65,22 @@ def exponent_bits(e: int) -> list:
 # the same unique values by another route (whole-column products and the
 # Montgomery quotient M = -t p^-1 mod R at once), so the limbs agree.
 
+# Lanes from which `_columns` adds shifted rows instead of gathering the
+# whole outer product: n row operations on (n, lanes) tensors beat one
+# gather over n^2 products once the products stop fitting in cache.
+SHIFT_ADD_LANES = 256
+
+
 def _columns(field, a, b, rows: int):
     """Un-carried product columns sum_{i+j=k, k<rows} a_i b_j (each < n 2^32)."""
     n = a.shape[0]
+    if a[0].numel() >= SHIFT_ADD_LANES:
+        cols = torch.zeros((rows,) + a.shape[1:], dtype=torch.int64,
+                           device=a.device)
+        for i in range(min(n, rows)):
+            k = min(n, rows - i)
+            cols[i:i + k] += a[i] * b[:k]
+        return cols
 
     def pairs():
         i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
@@ -79,25 +92,36 @@ def _columns(field, a, b, rows: int):
     prod = (a.unsqueeze(1) * b.unsqueeze(0)).reshape((n * n,) + a.shape[1:])
     cols = torch.zeros((rows,) + a.shape[1:], dtype=torch.int64,
                        device=a.device)
-    return cols.index_add_(0, dst, prod.index_select(0, src))
+    if rows < 2 * n - 1:                 # else every pair lands: src = all
+        prod = prod.index_select(0, src)
+    return cols.index_add_(0, dst, prod)
 
 
 def mul_wide_plain(field, a, b):
     return field._carry(_columns(field, a, b, 2 * field.n + 1), bits=38)
 
 
-def redc_plain(field, t):
+def _redc_columns(field, t, bits: int):
+    """(t + M p) / R for M = -t p^-1 mod R, from the 2n+1 columns of t,
+    carried or not (each column < 2^bits, bits <= 37). M depends on t mod
+    R alone, which t's low n columns give without a carry."""
     n = field.n
     low = t[:n]
     nprime = field._const(field.nprime, t.ndim, t.device).expand(low.shape)
-    m = field._carry(_columns(field, low, nprime, n), bits=38)   # mod R
+    m = field._carry(_columns(field, low, nprime, n),           # mod R
+                     bits=bits + 21)
     p = field._const(field.p, t.ndim, t.device).expand(m.shape)
     cols = _columns(field, m, p, 2 * n + 1) + t                 # t + M p
     return field._carry(cols, bits=38)[n:2 * n]
 
 
+def redc_plain(field, t):
+    return _redc_columns(field, t, 16)
+
+
 def mont_mul_plain(field, a, b):
-    return redc_plain(field, mul_wide_plain(field, a, b))
+    """redc of a*b, straight from the product's columns (< n 2^32)."""
+    return _redc_columns(field, _columns(field, a, b, 2 * field.n + 1), 37)
 
 
 def pow_const_plain(field, a, e: int):

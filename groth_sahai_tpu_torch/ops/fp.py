@@ -32,6 +32,8 @@ is present; every op returns tensors on its inputs' device.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -135,9 +137,9 @@ class PrimeField:
         carry out of the top limb is dropped, as in the reference's scan.
         """
         v = cols
-        for _ in range(_carry_passes(bits)):
+        for k in range(_carry_passes(bits)):
             hi = v >> W
-            v = v & MASK
+            v = v & MASK if k == 0 else v.bitwise_and_(MASK)   # own copy
             v[1:] += hi[:-1]
         rows, nd = v.shape[0], v.ndim
         assert rows <= 62, "bit-mask carry needs rows + 1 <= 63 bits"
@@ -145,11 +147,11 @@ class PrimeField:
             [1 << i for i in range(rows)]).reshape((rows,) + (1,) * (nd - 1)))
         sh = self._cached(("iota", rows, nd), v.device, lambda: np.arange(
             rows).reshape((rows,) + (1,) * (nd - 1)))
-        g = ((v >> W) * w).sum(0)
-        p = ((v == MASK) * w).sum(0)
+        g = (v >> W).mul_(w).sum(0)
+        p = (v == MASK).mul(w).sum(0)
         cin = ((g | p) + g) ^ p
-        cbits = (cin.unsqueeze(0) >> sh) & 1
-        return (v + cbits) & MASK
+        cbits = (cin.unsqueeze(0) >> sh).bitwise_and_(1)
+        return (v + cbits).bitwise_and_(MASK)
 
     def _sub_borrow(self, a, b):
         """(a - b) limbwise (equal rows); returns (diff, borrow_out bool)."""
@@ -292,6 +294,15 @@ class PrimeField:
         """mask ? a : b, with mask shaped like the batch dims."""
         return torch.where(mask[None], a, b)
 
+    @staticmethod
+    def stack(elems):
+        """Stack field elements along a new axis 1 (one op downstream)."""
+        return torch.stack(elems, 1)
+
+    @staticmethod
+    def unstack(x, n):
+        return [x[:, i] for i in range(n)]
+
     # -------------------------------------------------------------- pow / inv
 
     def pow_const(self, a, e: int):
@@ -307,6 +318,46 @@ class PrimeField:
     def inv(self, a):
         """a^{-1} via Fermat; Montgomery in/out. inv(0) = 0 (by convention)."""
         return self.pow_const(a, self.p - 2)
+
+    def inv_batch(self, a, k: int = 8, rows: int = 32):
+        """Batched a^{-1} via the blocked Montgomery trick; inv(0) = 0.
+
+        One Fermat exponentiation per `rows` elements instead of one per
+        element: a forward product loop over `rows` steps, ONE batched
+        Fermat inversion of the row totals, a backward recovery loop. `k`:
+        static bound multiplier of the input (bound(a) <= k*p) for the zero
+        test; zeros are replaced by 1 and restored to 0 at the end.
+        """
+        batch = a.shape[1:]
+        total = math.prod(batch)
+        if total < 4 * rows:
+            return self.pow_const(a, self.p - 2)
+
+        zero = self.is_zero(a, k=k)
+        a = torch.where(zero[None], self.one(batch, device=a.device), a)
+        cols = -(-total // rows)
+        pad = rows * cols - total
+        flat = a.reshape(self.n, total)
+        if pad:
+            flat = torch.cat([flat, self.one((pad,), device=a.device)], 1)
+        g = flat.reshape(self.n, rows, cols)
+
+        # forward: excl[r] = a[0] * ... * a[r-1]; acc ends as the row total
+        acc = self.one((cols,), device=a.device)
+        excl = []
+        for r in range(rows):
+            excl.append(acc)
+            acc = self._mont_mul(acc, g[:, r])
+        acc = self.pow_const(acc, self.p - 2)
+
+        # backward: inv(a[r]) = excl[r] * acc; acc *= a[r]
+        outs = [None] * rows
+        for r in range(rows - 1, -1, -1):
+            outs[r] = self._mont_mul(excl[r], acc)
+            acc = self._mont_mul(acc, g[:, r])
+        inv_flat = torch.stack(outs, 1).reshape(self.n, rows * cols)
+        inv_flat = inv_flat[:, :total].reshape((self.n,) + tuple(batch))
+        return torch.where(zero[None], torch.zeros_like(inv_flat), inv_flat)
 
     # ------------------------------------------------------------- conversion
 

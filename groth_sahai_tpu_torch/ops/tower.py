@@ -83,6 +83,8 @@ class _Fq2:
     def neg(self, a, k: int = 8):
         return FQ.neg(a, k=k)
 
+    def double(self, a):
+        return FQ.double(a)
 
     def mul_wide2(self, a, b):
         """Unreduced Fq2 product: wide coeffs (2nl+1, 2, *batch).
@@ -144,9 +146,28 @@ class _Fq2:
         return FQ.mul(_stack([a[:, 0], FQ.neg(a[:, 1], k=8)], 1),
                       ni[:, None])
 
+    def inv_batch(self, a, k: int = 8):
+        """Batched inverse: one Fq Montgomery-trick inversion of the norms
+        (norm = 0 iff a = 0 since -1 is a non-residue mod p)."""
+        t = FQ.mul(a, a)
+        norm = FQ.add(t[:, 0], t[:, 1])                # < 4p
+        ni = FQ.inv_batch(norm, k=4)
+        return FQ.mul(_stack([a[:, 0], FQ.neg(a[:, 1], k=k)], 1),
+                      ni[:, None])
+
     # ---- predicates / io ----
+    def is_zero(self, a, k: int = 8):
+        return FQ.is_zero(a[:, 0], k=k) & FQ.is_zero(a[:, 1], k=k)
+
     def eq(self, a, b, k: int = 8):
         return FQ.eq(a[:, 0], b[:, 0], k=k) & FQ.eq(a[:, 1], b[:, 1], k=k)
+
+    @staticmethod
+    def select(mask, a, b):
+        return torch.where(mask[None, None], a, b)
+
+    def normalize(self, a, k: int = 8):
+        return FQ.normalize(a, k=k)
 
     @staticmethod
     def stack(elems):

@@ -102,6 +102,18 @@ def test_plain_kernels_match_jax_field(fields):
     same(F.mul(port(a), port(b)), want)
 
 
+def test_plain_kernels_match_jax_field_on_wide_batches():
+    """From cuda_fp.SHIFT_ADD_LANES lanes on, the plain versions form their
+    product columns by shifted row sums: the same limbs as the JAX FQ."""
+    a, b = mul_inputs(FQ, 9, lanes=cuda_fp.SHIFT_ADD_LANES + 40)
+    t = wide_input(FQ, 10, lanes=cuda_fp.SHIFT_ADD_LANES + 40)
+    same(cuda_fp.mul_wide(FQ, port(a), port(b)),
+         jax.jit(JFQ.mul_wide)(jnp.asarray(a), jnp.asarray(b)))
+    same(cuda_fp.redc(FQ, port(t)), jax.jit(JFQ.redc)(jnp.asarray(t)))
+    same(cuda_fp.mont_mul(FQ, port(a), port(b)),
+         jax.jit(JFQ.mul)(jnp.asarray(a), jnp.asarray(b)))
+
+
 @pytest.mark.parametrize("fields", FIELDS, ids=FIELD_IDS)
 def test_pow_const_and_inv_match_jax_field(fields):
     F, JF = fields
@@ -226,6 +238,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import groth_sahai_tpu_torch.ops.pairing, groth_sahai_tpu_torch.ops.curve\n"
         "import groth_sahai_tpu_torch.models.kernels\n"
         "import groth_sahai_tpu_torch.utils.convert, groth_sahai_tpu_torch.utils.hostcrypto\n"
+        "import groth_sahai_tpu_torch.ops.proj, groth_sahai_tpu_torch.ops.cuda_curve\n"
+        "import groth_sahai_tpu_torch.models.prover, groth_sahai_tpu_torch.models.verifier\n"
+        "import groth_sahai_tpu_torch.models.crs, groth_sahai_tpu_torch.utils.rng\n"
         "import chip_smoke\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and (\n"
         "       m == 'groth_sahai_tpu' or m.startswith('groth_sahai_tpu.')\n"
