@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .cuda_build import KernelLibrary, check, host_words, lanes, on_cpu, stream
+from .limbs import MASK, W, int_to_limbs
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -101,18 +102,48 @@ def mul_wide_plain(field, a, b):
     return field._carry(_columns(field, a, b, 2 * field.n + 1), bits=38)
 
 
+def _toeplitz(field, value: int, rows: int, device):
+    """float64 (rows, n) matrix T with T[k, j] = limb k - j of `value`, made
+    once per device: T @ x gives the product columns of `value` and x (x's
+    limbs on axis 0), exact while every column stays below 2^53."""
+    key = (("toeplitz", value, rows), device)
+    t = field._consts.get(key)
+    if t is None:
+        c = int_to_limbs(value, field.n).astype(np.int64)
+        k = np.arange(rows)[:, None] - np.arange(field.n)[None, :]
+        t = torch.as_tensor(np.where((k >= 0) & (k < field.n),
+                                     c[np.clip(k, 0, field.n - 1)], 0),
+                            dtype=torch.float64, device=device)
+        field._consts[key] = t
+    return t
+
+
+def _const_columns(field, value: int, x, rows: int):
+    """Product columns of a constant and x (limbs < 2^16 on axis 1; any
+    leading stack axis rides along) by one float64 matrix product: each
+    column is < n 2^32, exact."""
+    T = _toeplitz(field, value, rows, x.device)
+    shape = x.shape[:1] + (rows,) + x.shape[2:]
+    xf = x.reshape(x.shape[0], field.n, -1).to(torch.float64)
+    return (T @ xf).to(torch.int64).reshape(shape)
+
+
 def _redc_columns(field, t, bits: int):
     """(t + M p) / R for M = -t p^-1 mod R, from the 2n+1 columns of t,
     carried or not (each column < 2^bits, bits <= 37). M depends on t mod
-    R alone, which t's low n columns give without a carry."""
+    R alone, which t's low n columns give without a carry: split into
+    16-bit pieces, each piece's product with p^-1 is exact in float64."""
     n = field.n
     low = t[:n]
-    nprime = field._const(field.nprime, t.ndim, t.device).expand(low.shape)
-    m = field._carry(_columns(field, low, nprime, n),           # mod R
-                     bits=bits + 21)
-    p = field._const(field.p, t.ndim, t.device).expand(m.shape)
-    cols = _columns(field, m, p, 2 * n + 1) + t                 # t + M p
-    return field._carry(cols, bits=38)[n:2 * n]
+    pieces = torch.stack([low & MASK, (low >> W) & MASK,
+                          low >> (2 * W)][:-(-bits // W)])
+    y = _const_columns(field, field.nprime, pieces, n)
+    cols = y[0]                                 # columns of low n' mod R
+    for s in range(1, y.shape[0]):
+        cols[s:] += y[s, :n - s]
+    m = field._carry(cols, bits=39)             # M = -t p^-1 mod R
+    cols = _const_columns(field, field.p, m[None], 2 * n + 1)[0] + t
+    return field._carry(cols, bits=38)[n:2 * n]   # (t + M p) / R
 
 
 def redc_plain(field, t):
