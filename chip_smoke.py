@@ -9,7 +9,7 @@ Phases (any failure exits non-zero and prints no result line):
                 for sm_90a, one process per source, all at once; prints the
                 build time, the compiler's resource report and the card's
                 name and power limit;
-  2. kernels -- each of the twelve kernels against its plain PyTorch version on
+  2. kernels -- each of the sixteen kernels against its plain PyTorch version on
                 the card, bit-exact, at the paths' main shapes: the field
                 kernels at Fq width over the pairing's stacks (16384,
                 442368, 98304 and 8192 lanes) and at Fr width over 8192
@@ -17,16 +17,22 @@ Phases (any failure exits non-zero and prints no result line):
                 and 4 for the final exponentiation's three exponents; the
                 Miller iterations and cyc_sqr over 4096, f12_pow_dyn over
                 4096 and 1024; cmadd and cdbl_n_add (n = 4) on G1 over
-                4096, 1336 and 4 lanes and on G2 over 1336 and 4. Seeded
-                random inputs plus edge lanes at the
+                4096, 1336 and 4 lanes and on G2 over 1336 and 4; cadd
+                and cmsm_row_scan at the MSM paths' widest calls (G2 at
+                verify-ppe-334's 668 MSMs, G1 at msm-g1-65536's, G2 at
+                prove-ppe-334's) and at ragged widths of 1000 and 4 lanes;
+                miller_dbl_step and miller_add_step over 4096 lanes, and
+                their R against the Miller iterations' on the same inputs.
+                Seeded random inputs plus edge lanes at the
                 top of each kernel's input bound (0, 1, p-1, 2p-1,
                 value(a)*value(b) = 2^16 p^2, wide t = p R - 1; Fq12
                 coefficients 32p - 1 or 2p - 1; Miller R with Y = 10p - 1,
                 P and Q at p - 1 and at the padding point (0, 0); scalars 0,
                 r - 1, 2^272 - 1; curve points with the accumulator at
                 infinity, the affine point at infinity, P + P, P + (-P),
-                coordinates at 4p - 1 and 2p - 1);
-  3. paths   -- twelve runs through the port's entry points, each against the
+                coordinates at 4p - 1 and 2p - 1; a scan column that is all
+                infinity);
+  3. paths   -- sixteen runs through the port's entry points, each against the
                 host oracle:
                 pairing-8192: `pairing(P, Q)` over 8192 pairs (P_i = a_i G1,
                   Q_i = b_i G2, a few infinity lanes); sampled lanes and the
@@ -60,6 +66,19 @@ Phases (any failure exits non-zero and prints no result line):
                 prove-verify-ppe-8x8: a PPE with m = n = 8 (K = 28 Miller
                   pairs), verifying and failing with one element of pi
                   replaced;
+                msm-g1-65536: the Pippenger `msm` over 65536 G1 points
+                  (window 13: one cmsm_row_scan over 4096 lanes x 320 rows)
+                  against (sum s_i a_i) G1 on the host;
+                prove-ppe-334: `commit_and_prove` of the reference's
+                  make_ppe(334, 334); pi, theta and sampled commitments
+                  against their discrete logs (four Com products take a
+                  batched msm of 4 MSMs of 512 points);
+                verify-ppe-334: `verify` of that proof (True), with pi
+                  changed and with a wrong target (False); Gamma d (668 G2
+                  MSMs of 512 points) entry by entry against the host;
+                miller-steps-4096: the Miller loop's point schedule through
+                  the step entry points miller_dbl_step and
+                  miller_add_step, against the host's twin;
                 each counted run records the shape (and exponent) of every
                 launch, and every kernel is then held bit-exact, with
                 inputs made as in phase 2, at each recorded shape that
@@ -69,7 +88,8 @@ Phases (any failure exits non-zero and prints no result line):
                 there must have run on it, each launch recorded with its
                 shape; the Miller iterations exactly 63 + 5 times per
                 Miller loop, the curve kernels 14 + 64 times per
-                scalar_mul), each
+                scalar_mul and as `msm_launches` derives them per msm
+                call), each
                 kernel's device time per launch
                 (profiler) at its path shape beside its bound, the plain
                 version's time (CUDA events), one `kernels` JSON line, a
@@ -121,11 +141,19 @@ ORIGIN = {   # kernel -> (the TPU kernel it replaces, its source in the port)
     "f12_pow_dyn": ("groth_sahai_tpu/ops/pallas_tower.py:832", TOWER_SOURCE),
     "cmadd": ("groth_sahai_tpu/ops/pallas_curve.py:437", CURVE_SOURCE),
     "cdbl_n_add": ("groth_sahai_tpu/ops/pallas_curve.py:475", CURVE_SOURCE),
+    "cadd": ("groth_sahai_tpu/ops/pallas_curve.py:457", CURVE_SOURCE),
+    "cmsm_row_scan": ("groth_sahai_tpu/ops/pallas_curve.py:529", CURVE_SOURCE),
+    "miller_dbl_step": ("groth_sahai_tpu/ops/pallas_tower.py:879",
+                        TOWER_SOURCE),
+    "miller_add_step": ("groth_sahai_tpu/ops/pallas_tower.py:901",
+                        TOWER_SOURCE),
 }
 FIELD = ("mont_mul", "mul_wide", "redc", "pow_const")
 NEW = ("cyc_sqr", "miller_iter_dbl", "miller_iter_add", "f12_pow_dyn")
 MILLER = ("miller_iter_dbl", "miller_iter_add")
 CURVE = ("cmadd", "cdbl_n_add")
+MSM_KERNELS = ("cadd", "cmsm_row_scan")
+STEPS = ("miller_dbl_step", "miller_add_step")
 TOWER = ("fq12_mul", "cyc_pow", "cyc_sqr", "f12_pow_dyn") + MILLER
 # The kernels each path must launch, as the reference takes them: above
 # 4096 lanes the Miller loop runs the lazy tower over the field kernels
@@ -157,7 +185,24 @@ PATH_KERNELS = {
                ("cyc_sqr", "f12_pow_dyn")),
     "prove-verify-ppe-8x8": (FIELD + CURVE + MILLER + ("fq12_mul", "cyc_pow"),
                              ("cyc_sqr", "f12_pow_dyn")),
+    # the MSM paths: msm-g1-65536 runs the MSM alone (and to_jacobian's
+    # G1 products); the prover's Com products at K = 334 take the MSM, its
+    # commitments and K = 2 products scalar_mul; the verifier's Gamma d
+    # takes the MSM, its Miller half the fused iterations
+    "msm-g1-65536": (MSM_KERNELS + ("cdbl_n_add",) + G1_GLUE,
+                     TOWER + ("cmadd", "pow_const")),
+    "prove-ppe-334": (MSM_KERNELS + CURVE + G2_GLUE + ("pow_const",), TOWER),
+    "verify-ppe-334": (MSM_KERNELS + ("cdbl_n_add",) + FIELD + MILLER
+                       + ("fq12_mul", "cyc_pow"),
+                       ("cmadd", "cyc_sqr", "f12_pow_dyn")),
 }
+# No path but the MSM paths runs the MSM; no path but miller-steps-4096
+# runs the Miller step entry points (no caller in either package).
+for _path, (_need, _never) in list(PATH_KERNELS.items()):
+    PATH_KERNELS[_path] = (_need, _never + STEPS + tuple(
+        k for k in MSM_KERNELS if k not in _need))
+PATH_KERNELS["miller-steps-4096"] = (STEPS, tuple(k for k in ORIGIN
+                                                  if k not in STEPS))
 EXACT = {("pairing-4096", "miller_iter_dbl"): 63,
          ("pairing-4096", "miller_iter_add"): 5,
          ("signed-1024", "miller_iter_dbl"): 63,
@@ -170,6 +215,9 @@ M_COMMIT = 334           # variables of the reference's commit_*_334 rows
 SCALAR_LANES = 4096      # points of scalar-mul-g1-4096 (benches/suite.py)
 PPE_SIDE = 8             # m = n of prove-verify-ppe-8x8: the largest PPE
                          # whose com_matvec stays below K = 16
+MSM_POINTS = 65536       # points of msm-g1-65536 (the reference's msm_65536)
+PPE_M = 334              # m = n of prove-ppe-334 and verify-ppe-334
+STEP_LANES = 4096        # Q points of miller-steps-4096
 
 
 def e2e_scalar_muls(x_scalar: bool, y_scalar: bool, quad: bool,
@@ -182,7 +230,8 @@ def e2e_scalar_muls(x_scalar: bool, y_scalar: bool, quad: bool,
     iota_prime (the constants' and the variables' _iota_side); `verify`
     makes one com_matvec (Gamma d), one iota_prime per scalar side (the
     constants) and, for a quadratic equation, the target pair's
-    scalar_mul_vec. Each com_matvec here has K < 16: one scalar_mul."""
+    scalar_mul_vec. Each com_matvec here has K < 16: one scalar_mul (at
+    K >= 16 it is one `msm` call instead, see `msm_calls`)."""
     commit = (2 if x_scalar else 1) + (2 if y_scalar else 1)
     prove = 6 + 2 * x_scalar + 2 * y_scalar
     return commit + prove + verifies * (1 + x_scalar + y_scalar + quad)
@@ -201,13 +250,76 @@ SCALAR_MULS = {
     "gs-e2e": sum(e2e_scalar_muls(*t, verifies=2)
                   for t in E2E_TYPES.values()),
     "prove-verify-ppe-8x8": e2e_scalar_muls(False, False, False, 2)}
-VERIFIES = {"gs-e2e": 2 * len(E2E_TYPES), "prove-verify-ppe-8x8": 2}
+# prove-ppe-334: the two commitments and pi3, theta3 (K = 2) are
+# scalar_mul calls; pi1, pi2, theta1, theta2 (K = 334) are msm calls.
+# verify-ppe-334 verifies three times (an honest proof, a changed pi, a
+# wrong target): each Gamma d is one msm call.
+SCALAR_MULS["prove-ppe-334"] = 4
+VERIFIES = {"gs-e2e": 2 * len(E2E_TYPES), "prove-verify-ppe-8x8": 2,
+            "verify-ppe-334": 3}
 for _path, _calls in SCALAR_MULS.items():
     for _name, _per in SCALAR_MUL_LAUNCHES.items():
         EXACT[_path, _name] = _calls * _per
 for _path, _calls in VERIFIES.items():
     EXACT[_path, "miller_iter_dbl"] = 63 * _calls
     EXACT[_path, "miller_iter_add"] = 5 * _calls
+EXACT["miller-steps-4096", "miller_dbl_step"] = 63
+EXACT["miller-steps-4096", "miller_add_step"] = 5
+
+
+def next_pow2(k: int) -> int:
+    return 1 if k <= 1 else 1 << (k - 1).bit_length()
+
+
+def msm_geometry(n_points: int, window: int = 0):
+    """(window, width, rows, n_windows, nbuck) of one `msm` call over
+    n_points points, from ops/msm.py's rules."""
+    from groth_sahai_tpu_torch.ops import msm as MS
+    window = window or (8 if n_points < 16384 else 13)
+    n_windows = -(-MS.NBITS // window)
+    width = MS._pick_width(n_points * n_windows, None)
+    rows = -(-n_points * n_windows // width)
+    return window, width, rows, n_windows, (1 << (window - 1)) + 1
+
+
+def ppe_window(k: int) -> int:
+    """com_matvec's MSM window at K (padded to Kp): 4 below 512, else 8."""
+    return 4 if next_pow2(k) < 512 else 8
+
+
+def msm_launches(n_points: int, window: int = 0) -> dict:
+    """Kernel launches of one `msm` call (ops/msm.py): one row scan; cadd
+    log2(width) times for the lane prefix, once for the prefix lookups,
+    once for the bucket differences, once per halving of the digit axis
+    above 1024 lanes and log2 of the rest for its prefix; one cdbl_n_add
+    (n = window) per window."""
+    window, width, _, n_windows, nbuck = msm_geometry(n_points, window)
+    L, halvings = nbuck - 1, 0
+    while L > 1024:
+        L //= 2
+        halvings += 1
+    return {"cmsm_row_scan": 1,
+            "cadd": width.bit_length() - 1 + 2 + halvings + L.bit_length() - 1,
+            "cdbl_n_add": n_windows}
+
+
+def msm_calls() -> dict:
+    """path -> the (points, window) of each msm call it makes."""
+    kp = next_pow2(PPE_M)
+    return {"msm-g1-65536": [(MSM_POINTS, 0)],
+            "prove-ppe-334": [(kp, ppe_window(PPE_M))] * 4,
+            "verify-ppe-334": [(kp, ppe_window(PPE_M))] * VERIFIES[
+                "verify-ppe-334"]}
+
+
+def exact_counts() -> dict:
+    """EXACT plus each path's msm launches."""
+    exact = dict(EXACT)
+    for path, calls in msm_calls().items():
+        for n_points, window in calls:
+            for name, k in msm_launches(n_points, window).items():
+                exact[path, name] = exact.get((path, name), 0) + k
+    return exact
 
 
 def card_line() -> str:
@@ -260,10 +372,12 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
+def device_ms(fn, reps: int, kernel: str) -> tuple:
     """Device time of one launch of `kernel` (the profiler's CUPTI record,
     without the host's issue time), averaged over the launches of `reps`
-    calls that the profiler recorded (it may miss the first of a window)."""
+    calls that the profiler recorded (it may miss the first of a window);
+    where it records none (as for some long launches), the call's time by
+    CUDA events. Returns (ms, "profiler" or "cuda events")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -275,23 +389,33 @@ def device_ms(fn, reps: int, kernel: str) -> float:
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and kernel + "_kernel" in e.key]
     count = sum(e.count for e in rows)
-    if not 0 < count <= reps:
+    if count > reps:
         raise AssertionError(f"the profiler saw {count} launches of {kernel} "
                              f"in {reps} calls")
-    return sum(e.self_device_time_total for e in rows) / count / 1e3
+    if not count:
+        return time_ms(fn, reps), "cuda events"
+    return sum(e.self_device_time_total for e in rows) / count / 1e3, \
+        "profiler"
 
 
 # ----------------------------------------------------------------- phase 2
 
 def rand_limbs(rows: int, lanes: int, bits: int, gen, device):
-    """Random exact limbs of values < 2^bits, from a seeded generator."""
+    """Random exact limbs of values < 2^bits, from a seeded generator (on
+    the device, from a seed the generator draws, above 2^24 limbs)."""
     import torch
-    x = torch.randint(0, 1 << 16, (rows, lanes), generator=gen,
-                      dtype=torch.int64)
+    if rows * lanes > 1 << 24:
+        dev_gen = torch.Generator(device).manual_seed(
+            int(torch.randint(1 << 62, (1,), generator=gen)))
+        x = torch.randint(0, 1 << 16, (rows, lanes), generator=dev_gen,
+                          dtype=torch.int64, device=device)
+    else:
+        x = torch.randint(0, 1 << 16, (rows, lanes), generator=gen,
+                          dtype=torch.int64).to(device)
     for i in range(rows):
         keep = max(0, min(16, bits - 16 * i))
         x[i] &= (1 << keep) - 1
-    return x.to(device)
+    return x
 
 
 def edge_limbs(values, rows: int, device):
@@ -354,7 +478,8 @@ PATH_LANES = {"mont_mul": 2 * BATCH, "mul_wide": 54 * BATCH,
               "fq12_mul": 4096, "cyc_pow": FUSED, "cyc_sqr": FUSED,
               "miller_iter_dbl": FUSED, "miller_iter_add": FUSED,
               "f12_pow_dyn": FUSED, "cmadd": SCALAR_LANES,
-              "cdbl_n_add": SCALAR_LANES}
+              "cdbl_n_add": SCALAR_LANES, "miller_dbl_step": STEP_LANES,
+              "miller_add_step": STEP_LANES}
 MAIN_FIELD = {"cmadd": "G1", "cdbl_n_add": "G1"}     # others: Fq
 ALSO_TIMED = {"cyc_pow": [("Fq", 4)],
               "cmadd": [("G2", COMMIT_LANES), ("G1", COMMIT_LANES)],
@@ -457,9 +582,9 @@ def curve_args(name, curve, lanes, n_dbl, gen, device):
 
     P, Q, A, inf = curve_edge_lanes(curve)
     p = tuple(coord(4, [pt[c] for pt in P]) for c in range(3))
-    if name == "cdbl_n_add":
+    if name in ("cdbl_n_add", "cadd"):
         q = tuple(coord(4, [pt[c] for pt in Q]) for c in range(3))
-        return p, n_dbl, q, curve
+        return (p, n_dbl, q, curve) if name == "cdbl_n_add" else (p, q, curve)
     flags = torch.rand(lanes, generator=gen) < 0.25
     flags[:len(inf)] = torch.tensor(inf[:lanes])
     flags = flags.to(device)
@@ -469,13 +594,57 @@ def curve_args(name, curve, lanes, n_dbl, gen, device):
     return p, (a[0], a[1], flags), curve
 
 
+def scan_args(curve, lanes, rows, gen, device):
+    """(pts, curve) for cmsm_row_scan over `rows` rows of `lanes` lanes:
+    seeded random affine coordinates < 2p, a quarter of them flagged
+    infinite; lane 0 a column that is all infinity; lane 1 the same point
+    A in every row (P + P from row 1 on); lane 2 A, then -A, alternately
+    (P + (-P)); lane 3 every coordinate at 2p - 1. The accumulator starts
+    at infinity in every lane."""
+    import torch
+    from groth_sahai_tpu_torch.ops.fp import FQ
+    p = FQ.p
+    lead = (2,) if curve.ns == 2 else ()
+
+    def coord(bound_p):
+        x = rand_limbs(FQ.n, (2 if curve.ns == 2 else 1) * rows * lanes,
+                       (bound_p * p).bit_length() - 1, gen, device)
+        return x.reshape((FQ.n,) + lead + (rows, lanes))
+
+    x, y = coord(2), coord(2)
+    inf = (torch.rand((rows, lanes), generator=gen) < 0.25).to(device)
+    A = curve_edge_lanes(curve)[2][0]              # affine, Montgomery
+    neg = (tuple(-c % p for c in A[1]) if curve.ns == 2 else -A[1] % p)
+    cols = {1: [A] * rows, 2: [A if r % 2 == 0 else (A[0], neg)
+                               for r in range(rows)],
+            3: [((2 * p - 1,) * 2 if curve.ns == 2 else 2 * p - 1,) * 2] * rows}
+    for lane, pts in cols.items():
+        if lane >= lanes:
+            continue
+        for c, t in ((0, x), (1, y)):
+            vals = [v for pt in pts for v in
+                    (pt[c] if curve.ns == 2 else (pt[c],))]
+            limbs = edge_limbs(vals, FQ.n, device)      # (25, rows ns)
+            t[..., lane] = limbs.reshape((FQ.n, rows) + lead).movedim(
+                1, -1) if curve.ns == 2 else limbs
+        inf[:, lane] = False
+    inf[:, 0] = True
+    return (x, y, inf), curve
+
+
 def case_args(name, field, lanes, e, gen, device):
     """The arguments of one kernel call over `lanes` lanes: seeded random
     values plus the edge lanes; `e` is the exponent of pow_const and
-    cyc_pow, the number of doublings of cdbl_n_add; `field` is the curve
-    of a curve kernel."""
-    if name in CURVE:
+    cyc_pow, the number of doublings of cdbl_n_add, the rows of
+    cmsm_row_scan; `field` is the curve of a curve kernel."""
+    if name == "cmsm_row_scan":
+        return scan_args(field, lanes, e, gen, device)
+    if name in CURVE + ("cadd",):
         return curve_args(name, field, lanes, e, gen, device)
+    if name in STEPS:
+        from groth_sahai_tpu_torch.ops.fp import FQ
+        _, R, Q, _ = miller_inputs(lanes, gen, device)
+        return (R, (FQ.p + 1) // 2) if name == "miller_dbl_step" else (R, Q)
     p = field.p
     if name in FIELD:
         a, b, t = field_inputs(field, lanes, gen, device)
@@ -513,7 +682,29 @@ def phase2_shapes():
         e = 4 if name == "cdbl_n_add" else None
         shapes += [(name, G1, m, e) for m in (SCALAR_LANES, COMMIT_LANES, 4)]
         shapes += [(name, G2, m, e) for m in (COMMIT_LANES, 4)]
+    curves = {"G1": G1, "G2": G2}
+    for name in MSM_KERNELS:      # the report's shapes, then ragged widths
+        shapes += [(name, curves[c], m, e) for c, m, e in msm_shapes(name)]
+        e = 6 if name == "cmsm_row_scan" else None
+        shapes += [(name, c, m, e) for c in (G1, G2) for m in (1000, 4)]
+    shapes += [(name, FQ, STEP_LANES, None) for name in STEPS]
     return shapes
+
+
+def msm_shapes(name):
+    """The report's shapes of an MSM kernel, main first: (curve name,
+    lanes, rows or None). cmsm_row_scan over verify-ppe-334's 2 PPE_M
+    MSMs (G2), msm-g1-65536's one (G1) and prove-ppe-334's four (G2);
+    cadd at the prefix lookups of the same calls (n_windows nbuck lanes
+    per MSM), the widest cadd of each path."""
+    _, width, rows, nw, nb = msm_geometry(MSM_POINTS)
+    _, pwidth, prows, pnw, pnb = msm_geometry(next_pow2(PPE_M),
+                                              ppe_window(PPE_M))
+    if name == "cmsm_row_scan":
+        return [("G2", 2 * PPE_M * pwidth, prows), ("G1", width, rows),
+                ("G2", 4 * pwidth, prows)]
+    return [("G2", 2 * PPE_M * pnw * pnb, None), ("G1", nw * nb, None),
+            ("G2", 4 * pnw * pnb, None)]
 
 
 def plain_of(name):
@@ -557,22 +748,49 @@ def check_shape(name, field, lanes, e, gen, device, worst, tag):
     return args
 
 
+def moved(x, device):
+    """A kernel's arguments (tensors in nested tuples) on `device`."""
+    import torch
+    if torch.is_tensor(x):
+        return x.to(device)
+    if isinstance(x, tuple):
+        return tuple(moved(y, device) for y in x)
+    return x
+
+
 def check_kernels(device):
     """Phase 2: every kernel bit-exact against its plain version at its
-    path's main shapes. Returns (worst error by kernel, the timing cases by
-    (kernel, lanes), the shapes checked)."""
+    path's main shapes. Returns (worst error by kernel, the report's
+    timing cases by (kernel, field, lanes), kept on the host, the shapes
+    checked)."""
     import torch
     from groth_sahai_tpu_torch.ops import cuda_fp as K
     from groth_sahai_tpu_torch.ops.fp import FQ, FR
     gen = torch.Generator().manual_seed(SEED)
     worst = {name: 0 for name in ORIGIN}
     timing, checked = {}, set()
+    timed = {(name, f, m) for name in ORIGIN for f, m, _ in
+             report_shapes(name)}
     for name, field, lanes, e in phase2_shapes():
         args = check_shape(name, field, lanes, e, gen, device, worst,
                            "kernels")
         checked.add((name, field.name, lanes, e))
-        if field is not FR:
-            timing[name, field.name, lanes] = args
+        if (name, field.name, lanes) in timed:     # kept on the host
+            timing[name, field.name, lanes] = moved(args, "cpu")
+        del args
+    # the Miller steps give the Miller iterations' R update, limb for limb
+    from groth_sahai_tpu_torch.ops import cuda_tower as CT
+    f, R, Q, P = miller_inputs(STEP_LANES, gen, device)
+    pairs = ((CT.miller_dbl_step(R, (FQ.p + 1) // 2)[0],
+              CT.miller_iter_dbl(f, R, *P)[1]),
+             (CT.miller_add_step(R, Q)[0], CT.miller_iter_add(f, R, Q, *P)[1]))
+    for stepped, iterated in pairs:
+        if not all(torch.equal(a, b) for a, b in zip(stepped, iterated)):
+            raise AssertionError("a Miller step's R differs from the "
+                                 "Miller iteration's")
+    print(f"[kernels] miller_dbl_step and miller_add_step over {STEP_LANES} "
+          f"lanes: R equals miller_iter_dbl's and miller_iter_add's",
+          flush=True)
     # the Fermat inverse really inverts: a * a^(p-2) == 1 on random lanes
     gen = torch.Generator().manual_seed(SEED + 1)
     fq_a = field_inputs(FQ, 256, gen, device)[0][:, 8:]
@@ -592,7 +810,9 @@ def recording(shapes):
     ...) see a copy of `cuda_fp`, `cuda_tower` and `cuda_curve` whose
     wrappers record;
     the wrappers themselves and their counts stay as they are. A curve
-    kernel's shape is (kernel, curve name, lanes, n_dbl)."""
+    kernel's shape is (kernel, curve name, lanes, n_dbl or the row scan's
+    rows). Yields the recording copies by module name, for a path that
+    calls the wrappers itself."""
     import types
     from groth_sahai_tpu_torch.ops.fp import FQ
     K, CT, CC = kernel_modules()
@@ -603,10 +823,14 @@ def recording(shapes):
             if lead is None:                 # curve kernels: (..., curve)
                 field, lead_ = args[-1], args[-1].ns
                 e = args[1] if isinstance(args[1], int) else None
+                if kern.__name__ == "cmsm_row_scan":
+                    e = args[0][2].shape[0]          # its rows
             else:
                 field = args[0] if lead == 1 else FQ
                 e = args[-1] if isinstance(args[-1], int) else None
                 lead_ = lead
+                if kern.__name__ in STEPS:           # 1/2, not an exponent
+                    e = None
             lanes = flat(out)[0][(0,) * lead_].numel()
             if lanes:
                 shapes[kern.__name__, field.name, lanes, e] += 1
@@ -632,7 +856,7 @@ def recording(shapes):
                     saved.append((mod, attr, val))
                     setattr(mod, attr, proxy)
     try:
-        yield
+        yield {module.__name__: proxy for module, proxy in proxies}
     finally:
         for mod, attr, val in saved:
             setattr(mod, attr, val)
@@ -1150,7 +1374,314 @@ def run_ppe_8x8(device, rng, shapes):
     return counts, secs, 0.0, run
 
 
-def run_gs_paths(device, mult1, rng, phases, by_path, shapes, runs):
+# ---------------------------------------------------- phase 3: MSM paths
+
+def reset_peak():
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib() -> float:
+    """The card's peak allocated memory since `reset_peak` (0 without a
+    card)."""
+    import torch
+    return (torch.cuda.max_memory_allocated() / 2 ** 30
+            if torch.cuda.is_available() else 0.0)
+
+
+def counted(fn, shapes, module=None):
+    """One counted run of a path: launch counts from 0, every launch's
+    shape recorded, the card's peak memory. With `module` (a kernel
+    module the path calls itself), fn takes its recording copy. Returns
+    (output, counts, seconds, peak GiB)."""
+    reset_counts()
+    reset_peak()
+    with recording(shapes) as proxies:
+        t0 = time.perf_counter()
+        out = fn(proxies[module.__name__]) if module else fn()
+        sync()
+        secs = time.perf_counter() - t0
+    return out, read_counts(), secs, peak_gib()
+
+
+def run_msm_g1(device, mult1, rng, shapes):
+    """msm-g1-65536: `msm(G1, ...)` over MSM_POINTS points a_i G1 (a_i
+    drawn from 1..len(mult1), so many repeat; three at infinity) with
+    seeded Fr scalars and the edges 0, 1, r - 1 (window 13 at 65536
+    points); against (sum s_i a_i mod r) G1, one host multiplication."""
+    from groth_sahai_tpu_torch.ops import bls12_381 as C
+    from groth_sahai_tpu_torch.ops.curve import (G1, g1_affine_from_ints,
+                                                 g1_affine_to_ints)
+    from groth_sahai_tpu_torch.ops.msm import msm
+    from groth_sahai_tpu_torch.utils import hostcrypto as H
+    n = MSM_POINTS
+    a = [rng.randrange(1, len(mult1) + 1) for _ in range(n)]
+    for lane in (7, n // 2, n - 1):
+        a[lane] = 0
+    sc = [rng.randrange(C.R) for _ in range(n)]
+    sc[:3] = [0, 1, C.R - 1]
+    pts = g1_affine_from_ints([None if k == 0 else mult1[k - 1] for k in a],
+                              device=device)
+    s = fr_limbs(sc, device)
+    sync()
+
+    def run():
+        return msm(G1, pts, s)
+
+    out, counts, secs, peak = counted(run, shapes)
+    t0 = time.perf_counter()
+    got = g1_affine_to_ints(G1.to_affine(tuple(c[..., None] for c in out)))
+    want = H.g1_mul((C.G1_GEN_X, C.G1_GEN_Y),
+                    sum(x * y for x, y in zip(a, sc)) % C.R)
+    if got != [want]:
+        raise AssertionError("msm-g1-65536: the MSM differs from the host")
+    window, width, rows = msm_geometry(n)[:3]
+    print(f"[msm-g1-65536] {n} points, window {window}, {width} lanes x "
+          f"{rows} rows: {secs:.3f} s on the card, peak {peak:.2f} GiB; "
+          f"matches (sum s_i a_i) G1 on the host", flush=True)
+    return counts, secs, time.perf_counter() - t0, run
+
+
+def ppe_334(device, mult1, mult2, rng):
+    """The statement of prove-ppe-334 and verify-ppe-334, shaped as the
+    reference's make_ppe(PPE_M, PPE_M) (benches/suite.py): X_i = x_i G1,
+    Y_j = y_j G2, A_j = a_j G1, B_i = b_i G2 with discrete logs drawn from
+    1..len(mult), a random Gamma (m x n), and the target from the logs
+    alone: t = e(G1, G2)^(sum x_i b_i + sum a_j y_j + sum Gamma_ij x_i
+    y_j). Returns (statement, the statement with target t e(G1, G2), X, Y,
+    logs (x, y, a, b, Gamma))."""
+    from groth_sahai_tpu_torch.ops import bls12_381 as C
+    from groth_sahai_tpu_torch.ops.curve import (g1_affine_from_ints,
+                                                 g2_affine_from_ints)
+    from groth_sahai_tpu_torch.ops.fp import FR
+    from groth_sahai_tpu_torch.ops.tower import FQ12
+    from groth_sahai_tpu_torch.models import statement as ST
+    m = n = PPE_M
+    draw = lambda mult, k: [rng.randrange(1, len(mult) + 1) for _ in range(k)]
+    x, a = draw(mult1, m), draw(mult1, n)
+    y, b = draw(mult2, n), draw(mult2, m)
+    gam = [[rng.randrange(C.R) for _ in range(n)] for _ in range(m)]
+    e = (sum(xi * bi for xi, bi in zip(x, b))
+         + sum(aj * yj for aj, yj in zip(a, y))
+         + sum(x[i] * sum(g * yj for g, yj in zip(gam[i], y))
+               for i in range(m)))
+    G1s = lambda ks: g1_affine_from_ints([mult1[k - 1] for k in ks],
+                                         device=device)
+    G2s = lambda ks: g2_affine_from_ints([mult2[k - 1] for k in ks],
+                                         device=device)
+    gamma = fr_limbs(sum(gam, []), device).reshape(FR.n, m, n)
+    target = lambda v: FQ12.from_ints([gt_power(v)], device=device)[:, :, 0]
+    A, B = G1s(a), G2s(b)
+    return (ST.PPE(A, B, gamma, target(e)), ST.PPE(A, B, gamma, target(e + 1)),
+            G1s(x), G2s(y), (x, y, a, b, gam))
+
+
+def draws_334(seed: int):
+    """The prover's GsRng draws, replayed: R (m x 2) of the X commitments,
+    S (n x 2) of the Y commitments, T (2 x 2) of the proof, row-major."""
+    from groth_sahai_tpu_torch.utils.rng import GsRng
+    twin = GsRng(seed)
+    rows = lambda v, k: [v[i * k:(i + 1) * k] for i in range(len(v) // k)]
+    return (rows(twin.fr_ints(2 * PPE_M), 2), rows(twin.fr_ints(2 * PPE_M), 2),
+            rows(twin.fr_ints(4), 2))
+
+
+def run_prove_334(device, crs, keys, stmt, rng, shapes):
+    """prove-ppe-334: `commit_and_prove` of the PPE of `ppe_334`. pi and
+    theta against their discrete logs on the host, from the replayed draws
+    and the CRS's logs:
+      pi[k]    = sum_i R_ik (O, B_i) + sum_j (R^T Gamma)_kj (O, Y_j)
+                 + sum_l (R^T Gamma S - T^T)_kl v_l,
+      theta[l] = sum_j S_jl (O, A_j) + sum_i (S^T Gamma^T)_li (O, X_i)
+                 + sum_k T_lk u_k;
+    and a seeded sample of 16 commitments of each side (both components).
+    Returns (counts, seconds, checks seconds, a re-run, the proof)."""
+    from groth_sahai_tpu_torch.ops import bls12_381 as C
+    from groth_sahai_tpu_torch.ops.curve import (g1_affine_to_ints,
+                                                 g2_affine_to_ints)
+    from groth_sahai_tpu_torch.models.prover import commit_and_prove
+    from groth_sahai_tpu_torch.utils import hostcrypto as H
+    from groth_sahai_tpu_torch.utils.rng import GsRng
+    equ, _, X, Y, (x, y, a, b, gam) = stmt
+    k1, k2 = keys
+    seed = SEED + 40
+    m = n = PPE_M
+    sync()
+
+    def run():
+        return commit_and_prove(equ, X, Y, crs, GsRng(seed))
+
+    proof, counts, secs, peak = counted(run, shapes)
+    t0 = time.perf_counter()
+    r = C.R
+    Rm, Sm, Tm = draws_334(seed)
+    rg = [[sum(Rm[i][k] * gam[i][j] for i in range(m)) % r for j in range(n)]
+          for k in range(2)]
+    pf = [[(sum(rg[k][j] * Sm[j][l] for j in range(n)) - Tm[l][k]) % r
+           for l in range(2)] for k in range(2)]
+    sg = [[sum(Sm[j][l] * gam[i][j] for j in range(n)) % r for i in range(m)]
+          for l in range(2)]
+    pi_log = lambda c, k: (c * (sum(Rm[i][k] * b[i] for i in range(m))
+                                + sum(rg[k][j] * y[j] for j in range(n)))
+                           + sum(pf[k][l] * k2[c][l] for l in range(2)))
+    th_log = lambda c, l: (c * (sum(Sm[j][l] * a[j] for j in range(n))
+                                + sum(sg[l][i] * x[i] for i in range(m)))
+                           + sum(Tm[l][k] * k1[c][k] for k in range(2)))
+    g1 = (C.G1_GEN_X, C.G1_GEN_Y)
+    g2 = (C.G2_GEN_X, C.G2_GEN_Y)
+    ep = proof.equ_proofs[0]
+    checks = [("pi", g2_affine_to_ints(ep.pi), H.g2_mul, g2, pi_log, 2),
+              ("theta", g1_affine_to_ints(ep.theta), H.g1_mul, g1, th_log, 2)]
+    sample = sorted(rng.sample(range(m), min(16, m)))
+    com_log = lambda logs, key, vs: lambda c, i: (
+        c * vs[i] + logs[i][0] * key[c][0] + logs[i][1] * key[c][1])
+    checks += [("X commitments", g1_affine_to_ints(proof.xcoms.coms),
+                H.g1_mul, g1, com_log(Rm, k1, x), m),
+               ("Y commitments", g2_affine_to_ints(proof.ycoms.coms),
+                H.g2_mul, g2, com_log(Sm, k2, y), n)]
+    for what, got, mul, gen, log, width in checks:
+        for c in range(2):
+            for k in (sample if width == m else range(width)):
+                if got[c * width + k] != mul(gen, log(c, k) % r):
+                    raise AssertionError(f"prove-ppe-334: {what} [{c}][{k}] "
+                                         f"differs from the host")
+    print(f"[prove-ppe-334] m = n = {m}: {secs:.3f} s on the card, peak "
+          f"{peak:.2f} GiB; pi, theta and commitments {sample} of X and Y "
+          f"match their discrete logs", flush=True)
+    return counts, secs, time.perf_counter() - t0, run, proof
+
+
+def run_verify_334(device, crs, keys, stmt, proof, shapes):
+    """verify-ppe-334: `verify` three times: the honest proof (True), pi's
+    first element replaced by p2 = v[0][0] (False), a wrong target
+    (False). Then Gamma d, the verifier's 2 m MSMs of the Y commitments
+    (padded to 512 points), entry by entry against its discrete log:
+    (Gamma d)[c][i] = sum_j Gamma_ij log(d_j[c]), log(d_j[c]) =
+    c y_j + S_j0 v[c][0] + S_j1 v[c][1]."""
+    import dataclasses
+    from groth_sahai_tpu_torch.ops import bls12_381 as C
+    from groth_sahai_tpu_torch.ops.curve import G2, g2_affine_to_ints
+    from groth_sahai_tpu_torch.models import kernels as MK
+    from groth_sahai_tpu_torch.models.verifier import verify
+    from groth_sahai_tpu_torch.utils import hostcrypto as H
+    equ, wrong, _, _, (x, y, a, b, gam) = stmt
+    _, k2 = keys
+    m = n = PPE_M
+    ep = proof.equ_proofs[0]
+    bad_pi = tuple(c.clone() for c in ep.pi)
+    for c in range(3):
+        bad_pi[c][..., 0, 0] = crs.v[c][..., 0, 0]
+    changed = dataclasses.replace(proof, equ_proofs=[
+        dataclasses.replace(ep, pi=bad_pi)])
+    sync()
+
+    def run():
+        return (verify(equ, proof, crs), verify(equ, changed, crs),
+                verify(wrong, proof, crs))
+
+    (good, bad, wrong_t), counts, secs, peak = counted(run, shapes)
+    if (good, bad, wrong_t) != (True, False, False):
+        raise AssertionError(f"verify-ppe-334: verifies {good}, with pi "
+                             f"changed {bad}, with a wrong target {wrong_t}")
+    t0 = time.perf_counter()
+    gd = g2_affine_to_ints(MK.to_affine(G2, MK.com_matvec(
+        G2, equ.gamma, proof.ycoms.coms)))
+    Sm = draws_334(SEED + 40)[1]
+    d_log = [[c * y[j] + Sm[j][0] * k2[c][0] + Sm[j][1] * k2[c][1]
+              for j in range(n)] for c in range(2)]
+    g2 = (C.G2_GEN_X, C.G2_GEN_Y)
+    for c in range(2):
+        for i in range(m):
+            log = sum(g * d for g, d in zip(gam[i], d_log[c])) % C.R
+            if gd[c * m + i] != H.g2_mul(g2, log):
+                raise AssertionError(f"verify-ppe-334: (Gamma d)[{c}][{i}] "
+                                     f"differs from the host")
+    print(f"[verify-ppe-334] m = n = {m} (K = {n + 2 * m + 4} Miller pairs), "
+          f"three verifies: {secs:.3f} s on the card, peak {peak:.2f} GiB; "
+          f"True, False with pi changed, False with a wrong target; all "
+          f"{2 * m} entries of Gamma d match their discrete logs", flush=True)
+    return counts, secs, time.perf_counter() - t0, run
+
+
+def run_miller_steps(device, mult2, rng, shapes):
+    """miller-steps-4096: the point schedule of one Miller loop (63
+    doubling steps, an addition step on each of the 5 set bits of |x|
+    after the first) through the step entry points `miller_dbl_step` and
+    `miller_add_step` over STEP_LANES points Q_i = b_i G2, from R = (xQ,
+    yQ, 1); the final R = |x| Q and the last lines of each kind on sampled
+    lanes against the host's twin of the schedule (hostcrypto._dbl_step,
+    _add_step), values mod p."""
+    from groth_sahai_tpu_torch.ops import bls12_381 as C
+    from groth_sahai_tpu_torch.ops import cuda_tower as CT
+    from groth_sahai_tpu_torch.ops.curve import g2_affine_from_ints
+    from groth_sahai_tpu_torch.ops.fp import FQ
+    from groth_sahai_tpu_torch.ops.tower import FQ2
+    from groth_sahai_tpu_torch.utils import hostcrypto as H
+    n = STEP_LANES
+    qs = [mult2[rng.randrange(len(mult2))] for _ in range(n)]
+    Q = g2_affine_from_ints(qs, device=device)
+    bits = [int(c) for c in bin(abs(C.X))[3:]]
+    two_inv = (FQ.p + 1) // 2
+    sync()
+
+    def run(steps=CT):
+        R = (Q[0], Q[1], FQ2.one((n,), device=device))
+        last = {}
+        for bit in bits:
+            R, last["dbl"] = steps.miller_dbl_step(R, two_inv)
+            if bit:
+                R, last["add"] = steps.miller_add_step(R, Q[:2])
+        return R, last
+
+    (R, last), counts, secs, peak = counted(run, shapes, module=CT)
+    t0 = time.perf_counter()
+    sample = [0, n - 1] + rng.sample(range(1, n - 1), 6)
+    vals = lambda t: [tuple(c % FQ.p for c in v)
+                      for v in FQ2.to_ints(t[..., sample])]
+    got_R = [vals(c) for c in R]
+    got_l = {k: [vals(c) for c in v] for k, v in last.items()}
+    for s_i, lane in enumerate(sample):
+        q = qs[lane]
+        Rp, want = (q[0], q[1], (1, 0)), {}
+        for bit in bits:
+            Rp, want["dbl"] = H._dbl_step(Rp)
+            if bit:
+                Rp, want["add"] = H._add_step(Rp, q)
+        ok = all(got_R[c][s_i] == Rp[c] for c in range(3)) and all(
+            got_l[k][c][s_i] == want[k][c] for k in want for c in range(3))
+        if not ok:
+            raise AssertionError(f"miller-steps-4096: lane {lane} differs "
+                                 f"from the host's schedule")
+    print(f"[miller-steps-4096] {n} lanes, {len(bits)} doubling and "
+          f"{sum(bits)} addition steps: {secs:.3f} s on the card, peak "
+          f"{peak:.2f} GiB; R and the last lines of lanes {sample} match the "
+          f"host", flush=True)
+    return counts, secs, time.perf_counter() - t0, run
+
+
+def run_msm_paths(device, crs, keys, mult1, mult2, rng, phases, by_path,
+                  shapes, runs):
+    """Phase 3, the MSM paths and the Miller steps (see run_paths)."""
+    def keep(path, out):
+        by_path[path], phases[path], phases[path + "_checks"], runs[path] = \
+            out[:4]
+        return out[4:]
+
+    keep("msm-g1-65536", run_msm_g1(device, mult1, rng,
+                                    shapes["msm-g1-65536"]))
+    t0 = time.perf_counter()
+    stmt = ppe_334(device, mult1, mult2, rng)
+    phases["ppe-334_statement"] = time.perf_counter() - t0
+    proof, = keep("prove-ppe-334", run_prove_334(
+        device, crs, keys, stmt, rng, shapes["prove-ppe-334"]))
+    keep("verify-ppe-334", run_verify_334(device, crs, keys, stmt, proof,
+                                          shapes["verify-ppe-334"]))
+    keep("miller-steps-4096", run_miller_steps(device, mult2, rng,
+                                               shapes["miller-steps-4096"]))
+
+
+def run_gs_paths(device, mult1, mult2, rng, phases, by_path, shapes, runs):
     """Phase 3, the commit / prove / verify paths (see run_paths)."""
     from groth_sahai_tpu_torch.models.crs import generate_crs
     from groth_sahai_tpu_torch.utils.rng import GsRng
@@ -1172,6 +1703,8 @@ def run_gs_paths(device, mult1, rng, phases, by_path, shapes, runs):
     path = "prove-verify-ppe-8x8"
     by_path[path], phases[path], _, runs[path] = run_ppe_8x8(device, rng,
                                                              shapes[path])
+    run_msm_paths(device, crs, (k1, k2), mult1, mult2, rng, phases, by_path,
+                  shapes, runs)
 
 
 # ----------------------------------------------------------------- phase 5
@@ -1186,9 +1719,10 @@ def bound_ms(name: str, lanes: int, args) -> tuple:
     doubling iteration 176 (66 for f^2, 49 for the point step, 4 to scale
     the line, 57 for the sparse product), an addition iteration 126 (65 +
     4 + 57); a complete mixed add 11, a complete doubling 8, a complete
-    add 12 (each Fq2 product on G2 five). The chains count what this
-    input needs: a square per bit, a product per set bit (for f12_pow_dyn,
-    each lane's own scalar bits)."""
+    add 12 (each Fq2 product on G2 five), the row scan 11 per row; the
+    Miller doubling step 49, the addition step 65. The chains count what
+    this input needs: a square per bit, a product per set bit (for
+    f12_pow_dyn, each lane's own scalar bits)."""
     from groth_sahai_tpu_torch.ops import cuda_fp as K
     from groth_sahai_tpu_torch.ops import cuda_tower as CT
     from groth_sahai_tpu_torch.ops.fp import FQ, FR
@@ -1204,16 +1738,20 @@ def bound_ms(name: str, lanes: int, args) -> tuple:
         s = args[-1].expand((FR.n,) + args[0].shape[2:]).reshape(FR.n, -1)
         set_bits = sum(int(((s >> b) & 1).sum()) for b in range(16))
         products = (CT.POW_DYN_NBITS * 66 + set_bits * 66 / lanes) * mont
-    elif name in CURVE:
+    elif name in CURVE + MSM_KERNELS:
         # an Fq2 product is 5 Montgomery products (3 Karatsuba + 2
-        # post-reductions); cmadd 11 products, a doubling 8, an add 12;
-        # coordinates: 5 in + 3 out (cmadd, plus one flag byte a lane),
-        # 6 in + 3 out (cdbl_n_add)
+        # post-reductions); cmadd 11 products, a doubling 8, an add 12,
+        # the row scan 11 a row; coordinates: 5 in + 3 out (cmadd, plus one
+        # flag byte a lane), 6 in + 3 out (cdbl_n_add, cadd), a row scan
+        # 2 in + 3 out a row (plus a flag byte) and 3 totals
         ns = args[-1].ns
-        per = 11 if name == "cmadd" else 8 * args[1] + 12
+        rows = args[0][2].shape[0] if name == "cmsm_row_scan" else 1
+        per = {"cmadd": 11, "cadd": 12, "cmsm_row_scan": 11 * rows}.get(
+            name) or 8 * args[1] + 12
         products = per * (5 if ns == 2 else 1) * mont
-        coords = 8 if name == "cmadd" else 9
-        t_bytes = (coords * n * ns * 8 + (name == "cmadd")) * lanes \
+        coords = {"cmadd": 8, "cmsm_row_scan": 5 * rows + 3}.get(name, 9)
+        flag_bytes = {"cmadd": 1, "cmsm_row_scan": rows}.get(name, 0)
+        t_bytes = (coords * n * ns * 8 + flag_bytes) * lanes \
             / PEAK_BYTES_PER_S * 1e3
         t_ops = products * lanes / PEAK_IMAD_PER_S * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -1222,66 +1760,77 @@ def bound_ms(name: str, lanes: int, args) -> tuple:
         products = {"mont_mul": mont, "mul_wide": n * n, "redc": n * n,
                     "fq12_mul": 66 * mont, "cyc_sqr": 30 * mont,
                     "miller_iter_dbl": 176 * mont,
-                    "miller_iter_add": 126 * mont}[name]
+                    "miller_iter_add": 126 * mont,
+                    "miller_dbl_step": 49 * mont,
+                    "miller_add_step": 65 * mont}[name]
     limbs = {"mont_mul": 3 * n, "mul_wide": 4 * n + 1, "redc": 3 * n + 1,
              "pow_const": 2 * n, "fq12_mul": 36 * n, "cyc_pow": 24 * n,
              "cyc_sqr": 24 * n, "miller_iter_dbl": 38 * n,
-             "miller_iter_add": 42 * n, "f12_pow_dyn": 24 * n + FR.n}[name]
+             "miller_iter_add": 42 * n, "f12_pow_dyn": 24 * n + FR.n,
+             "miller_dbl_step": 18 * n, "miller_add_step": 22 * n}[name]
     t_bytes = limbs * 8 * lanes / PEAK_BYTES_PER_S * 1e3
     t_ops = products * lanes / PEAK_IMAD_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def time_kernel(name, lanes, args):
-    """(device ms per launch, wrapper ms, plain ms, bound ms, bound by) of
-    one kernel on one case; its outputs compared once more."""
+    """(device ms per launch, wrapper ms, plain ms, bound ms, bound by, how
+    the device time was taken) of one kernel on one case; its outputs
+    compared once more."""
     kern, plain = kernels()[name], plain_of(name)
     saved = kern.launches
     if compare(name, args) != 0:
         raise AssertionError(f"{name} differs from its plain version at the "
                              f"timing shape ({lanes} lanes)")
-    slow = name in ("pow_const", "cyc_pow", "f12_pow_dyn")
-    ms = device_ms(lambda: kern(*args), 3 if slow else 20, name)
+    slow = name in ("pow_const", "cyc_pow", "f12_pow_dyn") or lanes > 1 << 16
+    ms, how = device_ms(lambda: kern(*args), 3 if slow else 20, name)
     wrapper_ms = time_ms(lambda: kern(*args), 3 if slow else 20)
     plain_ms = time_ms(lambda: plain(*args), 1 if slow else 5)
     kern.launches = saved              # timing launches are not path launches
-    return (ms, wrapper_ms, plain_ms) + bound_ms(name, lanes, args)
+    return (ms, wrapper_ms, plain_ms) + bound_ms(name, lanes, args) + (how,)
 
 
-def kernel_report(worst, timing, counts, by_path):
-    """Each kernel at its path shape (and cyc_pow at the signed products'
-    4 lanes too): device time per launch (profiler), the wrapper's time per
-    call and the plain version's (CUDA events), its bound; the outputs of
-    these inputs compared once more."""
+def report_shapes(name):
+    """[(field or curve name, lanes, rows or None)] at which the report
+    times a kernel, its main shape first."""
+    if name in MSM_KERNELS:
+        return msm_shapes(name)
+    main = [(MAIN_FIELD.get(name, "Fq"), PATH_LANES[name], None)]
+    return main + [(f, m, None) for f, m in ALSO_TIMED.get(name, [])]
+
+
+def kernel_report(device, worst, timing, counts, by_path):
+    """Each kernel at its path shapes (main first): device time per launch
+    (profiler), the wrapper's time per call and the plain version's (CUDA
+    events), its bound; the outputs of these inputs compared once more."""
     rows = []
     for name, (replaces, source) in ORIGIN.items():
-        lanes = PATH_LANES[name]
-        main = MAIN_FIELD.get(name, "Fq")
-        ms, wrapper_ms, plain_ms, bound, by = time_kernel(
-            name, lanes, timing[name, main, lanes])
-        row = {
+        times = []
+        for field, lanes, e in report_shapes(name):
+            args = moved(timing.pop((name, field, lanes)), device)
+            t = time_kernel(name, lanes, args)
+            del args
+            times.append(dict(zip(
+                ("field", "lanes", "rows", "ms", "wrapper_ms", "plain_ms",
+                 "bound_ms", "bound_by", "ms_by"), (field, lanes, e) + t)))
+            print(f"[report] {field} {name:15s} lanes={lanes:7d}"
+                  + (f" rows={e}" if e else "") + f" device {t[0]:.4f} ms "
+                  f"per launch by {t[5]} (wrapper {t[1]:.4f} ms per call, "
+                  f"plain {t[2]:.4f} ms), bound {t[3]:.5f} ms by {t[4]}",
+                  flush=True)
+        main = times[0]
+        rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
-            "max_abs_err": worst[name], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None, "lanes": lanes, "field": main,
-            "wrapper_ms": wrapper_ms,
+            "max_abs_err": worst[name], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "ms_by": main["ms_by"],
+            "lanes": main["lanes"], "field": main["field"],
+            "wrapper_ms": main["wrapper_ms"],
             "launches_by_path": {path: c[name] for path, c in by_path.items()},
-        }
-        print(f"[report] {main} {name:15s} lanes={lanes:6d} device {ms:.4f} "
-              f"ms per launch (wrapper {wrapper_ms:.4f} ms per call, plain "
-              f"{plain_ms:.4f} ms), bound {bound:.5f} ms by {by}", flush=True)
-        row["also"] = []
-        for fname, m in ALSO_TIMED.get(name, []):
-            t = time_kernel(name, m, timing[name, fname, m])
-            row["also"].append(dict(zip(
-                ("field", "lanes", "ms", "wrapper_ms", "plain_ms", "bound_ms",
-                 "bound_by"), (fname, m) + t)))
-            print(f"[report] {fname} {name:15s} lanes={m:6d} device "
-                  f"{t[0]:.4f} ms per launch (wrapper {t[1]:.4f} ms per "
-                  f"call, plain {t[2]:.4f} ms), bound {t[3]:.5f} ms by "
-                  f"{t[4]}", flush=True)
-        rows.append(row)
+            "also": times[1:],
+        })
     return rows
 
 
@@ -1368,15 +1917,16 @@ def run_paths(device, mult1, mult2, rng, phases):
     by_path["gt-exp-4096"] = c
     runs["gt-exp-4096"] = lambda: (gt_exp(g[0], g[2].reshape(
         g[2].shape[0], EQUATIONS, 1, 1)), gt_exp(g[1], g[2]))
-    run_gs_paths(device, mult1, rng, phases, by_path, shapes, runs)
+    run_gs_paths(device, mult1, mult2, rng, phases, by_path, shapes, runs)
     return by_path, shapes, runs
 
 
 def check_counts(by_path, shapes_by_path):
     """Every kernel the reference takes on a path launched on it, the
     fused kernels not on the paths above their cap, the Miller iterations
-    exactly 63 + 5 times and f12_pow_dyn once per gt_exp call; every
-    launch recorded with its shape."""
+    exactly 63 + 5 times, f12_pow_dyn once per gt_exp call, the curve
+    kernels as scalar_mul and msm make them (`exact_counts`); every launch
+    recorded with its shape."""
     for path, counts in by_path.items():
         print(f"[report] launches on {path}: {json.dumps(counts)}",
               flush=True)
@@ -1396,7 +1946,7 @@ def check_counts(by_path, shapes_by_path):
         if stray:
             raise AssertionError(f"kernels launched on {path} that the "
                                  f"reference does not take there: {stray}")
-    for (path, name), want in EXACT.items():
+    for (path, name), want in exact_counts().items():
         if by_path[path][name] != want:
             raise AssertionError(f"{name} launched {by_path[path][name]} "
                                  f"times on {path}, not {want}")
@@ -1459,7 +2009,7 @@ def main() -> int:
               f"phase 2's {len(checked) - extra}", flush=True)
 
         t0 = time.perf_counter()
-        rows = kernel_report(worst, timing, total, by_path)
+        rows = kernel_report(device, worst, timing, total, by_path)
         phases["report"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()

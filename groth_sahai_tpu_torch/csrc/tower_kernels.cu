@@ -1,4 +1,4 @@
-// The fused tower kernels of the port: Hopper (sm_90a) counterparts of six
+// The fused tower kernels of the port: Hopper (sm_90a) counterparts of eight
 // Pallas kernels of groth_sahai_tpu/ops/pallas_tower.py.
 //
 //   gs_fq12_mul        <- pallas_tower.fq12_mul / fq12_sqr (_fq12_mul_kernel)
@@ -7,13 +7,17 @@
 //   gs_miller_iter_dbl <- pallas_tower.miller_iter_dbl (_miller_iter_dbl_kernel)
 //   gs_miller_iter_add <- pallas_tower.miller_iter_add (_miller_iter_add_kernel)
 //   gs_f12_pow_dyn     <- pallas_tower.f12_pow_dyn (_f12_pow_dyn_kernel)
+//   gs_miller_dbl_step <- pallas_tower.miller_dbl_step (_miller_dbl_kernel)
+//   gs_miller_add_step <- pallas_tower.miller_add_step (_miller_add_kernel)
 //
 // The reference takes them for batches of at most 4096 lanes: on the
 // verifier's signed Miller product at Kp <= 1024 the two iteration kernels
 // run the whole Miller loop (63 + 5 launches), fq12_mul the tree product
 // over the pair axis and the final exponentiation with cyc_pow;
 // f12_pow_dyn is gt_exp, the rho-weighting of randomized batch
-// verification; cyc_sqr is FQ12.cyclotomic_sqr.
+// verification; cyc_sqr is FQ12.cyclotomic_sqr. The two step kernels are
+// the point update and line of one Miller iteration alone (the iteration
+// kernels' own bodies): entry points that no path of either package calls.
 //
 // Work split: one thread per lane, as in fp_kernels.cu; an Fq12 batch is
 // int64 [25, 12, M] (limb i of coefficient c of lane l at (12 i + c) M + l),
@@ -215,6 +219,57 @@ miller_iter_add_kernel(const __grid_constant__ FieldQ f, const int64_t* fin,
   store2(zout, m, lane, Z3);
 }
 
+// The Miller doubling step alone (_miller_dbl_kernel): R <- 2R and the
+// line (l0, l1, l2) = (i, 3j, -h), not yet scaled by P. R = (X, Y, Z) with
+// X, Z < 2p, Y < 10p; outputs in the bounds of dbl_step_body.
+__global__ void __launch_bounds__(kThreads)
+miller_dbl_step_kernel(const __grid_constant__ FieldQ f,
+                       const __grid_constant__ FqConst tinv,
+                       const int64_t* xin, const int64_t* yin,
+                       const int64_t* zin, int64_t* xout, int64_t* yout,
+                       int64_t* zout, int64_t* l0out, int64_t* l1out,
+                       int64_t* l2out, int64_t m) {
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (lane >= m) return;
+  Fp2 X, Y, Z, X3, Y3, Z3, l0, l1, l2;
+  load2(xin, m, lane, X);
+  load2(yin, m, lane, Y);
+  load2(zin, m, lane, Z);
+  dbl_step_body(f, tinv.v, X, Y, Z, X3, Y3, Z3, l0, l1, l2);
+  store2(xout, m, lane, X3);
+  store2(yout, m, lane, Y3);
+  store2(zout, m, lane, Z3);
+  store2(l0out, m, lane, l0);
+  store2(l1out, m, lane, l1);
+  store2(l2out, m, lane, l2);
+}
+
+// The Miller addition step alone (_miller_add_kernel): R <- R + Q with Q
+// = (xq, yq) affine, and the line (j, -theta, lambda); Y < 10p.
+__global__ void __launch_bounds__(kThreads)
+miller_add_step_kernel(const __grid_constant__ FieldQ f, const int64_t* xin,
+                       const int64_t* yin, const int64_t* zin,
+                       const int64_t* xqin, const int64_t* yqin,
+                       int64_t* xout, int64_t* yout, int64_t* zout,
+                       int64_t* l0out, int64_t* l1out, int64_t* l2out,
+                       int64_t m) {
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (lane >= m) return;
+  Fp2 X, Y, Z, xq, yq, X3, Y3, Z3, l0, l1, l2;
+  load2(xin, m, lane, X);
+  load2(yin, m, lane, Y);
+  load2(zin, m, lane, Z);
+  load2(xqin, m, lane, xq);
+  load2(yqin, m, lane, yq);
+  add_step_body(f, X, Y, Z, xq, yq, X3, Y3, Z3, l0, l1, l2);
+  store2(xout, m, lane, X3);
+  store2(yout, m, lane, Y3);
+  store2(zout, m, lane, Z3);
+  store2(l0out, m, lane, l0);
+  store2(l1out, m, lane, l1);
+  store2(l2out, m, lane, l2);
+}
+
 constexpr int kScalarLimbs = 17;               // Fr standard-form limbs
 
 // a^s for a per-lane scalar s of 17 standard-form 16-bit limbs
@@ -328,6 +383,35 @@ int gs_f12_pow_dyn(int nl, int ns, const int64_t* a, const int64_t* s,
   f12_pow_dyn_kernel<<<grid_of(m), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       gs::make_field<N>(p, one, n0), a, s, out, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gs_miller_dbl_step(int nl, const int64_t* xin, const int64_t* yin,
+                       const int64_t* zin, int64_t* xout, int64_t* yout,
+                       int64_t* zout, int64_t* l0, int64_t* l1, int64_t* l2,
+                       int64_t m, const uint32_t* p, const uint32_t* one,
+                       const uint32_t* tinv, uint32_t n0, void* stream) {
+  if (nl != N) return -1;
+  FqConst t;
+  for (int j = 0; j < N; ++j) t.v[j] = tinv[j];
+  miller_dbl_step_kernel<<<grid_of(m), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      gs::make_field<N>(p, one, n0), t, xin, yin, zin, xout, yout, zout, l0,
+      l1, l2, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gs_miller_add_step(int nl, const int64_t* xin, const int64_t* yin,
+                       const int64_t* zin, const int64_t* xq,
+                       const int64_t* yq, int64_t* xout, int64_t* yout,
+                       int64_t* zout, int64_t* l0, int64_t* l1, int64_t* l2,
+                       int64_t m, const uint32_t* p, const uint32_t* one,
+                       uint32_t n0, void* stream) {
+  if (nl != N) return -1;
+  miller_add_step_kernel<<<grid_of(m), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      gs::make_field<N>(p, one, n0), xin, yin, zin, xq, yq, xout, yout, zout,
+      l0, l1, l2, m);
   return static_cast<int>(cudaGetLastError());
 }
 

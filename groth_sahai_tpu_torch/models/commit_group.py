@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import msm as msm_mod
 from ..ops import pairing as pr
 from ..ops.curve import G1, G2
 from ..ops.tower import FQ12
@@ -128,15 +129,16 @@ def com_matvec(curve, scal_std, com_vec):
 
     scal_std: int64[17, I, K] standard-form scalars. For K < 16 (the
     reference's small-K branch): one batched windowed scalar-mul over
-    (2, I, K) plus a tree reduction over K. For K >= 16 the reference takes
-    a vmapped Pippenger MSM, which the port does not have yet.
+    (2, I, K) plus a tree reduction over K. For K >= 16 (the verifier's
+    Gamma d at m = n = 334 is 2 x 334 MSMs of 512 padded points): one
+    Pippenger MSM call over the (2, I) batch of MSMs of K points (the
+    reference maps `msm` over it with vmap), window 4 below K = 512, else 8.
     """
     I, K = scal_std.shape[1], scal_std.shape[2]
-    if K >= 16:
-        raise NotImplementedError(
-            f"com_matvec with K = {K} >= 16 takes the Pippenger MSM "
-            f"(ops/msm.py), which is not ported yet")
     pts = aff_expand(curve, com_vec, 1, I)       # (2, I, K)
+    if K >= 16:
+        return msm_mod.msm(curve, pts, scal_std,
+                           window=4 if K < 512 else 8)           # (2, I)
     prods = curve.scalar_mul(pts, scal_std[:, None, :, :])   # Jacobian
     return curve.sum_reduce(prods, axis=2)       # Jacobian (2, I)
 

@@ -8,8 +8,11 @@ zero scalars are neutral in sums, and contribute the identity to a Miller
 product), so both packages run the same batch shapes, and so take the same
 kernels at each size. No jit: PyTorch runs eagerly.
 
-  * `com_matvec`, `iota_prime`, `scalar_mul_vec` run `Curve.scalar_mul`
-    (the fused `cmadd` / `cdbl_n_add` kernels) on padded batches;
+  * `iota_prime`, `scalar_mul_vec` and `com_matvec` below padded K = 16
+    run `Curve.scalar_mul` (the fused `cmadd` / `cdbl_n_add` kernels) on
+    padded batches; `com_matvec` at padded K >= 16 runs one Pippenger MSM
+    call (`ops/msm.py`: `cmsm_row_scan`, `cadd`, `cdbl_n_add`) over its
+    (2, I) batch of MSMs;
   * the Miller batch of `miller_product_signed` is (2, 2, Kp), 4 Kp lanes:
     for Kp <= 1024 (at most 4096 lanes; `verify` of a PPE with m = n = 334
     has K = 1006, Kp = 1024) each of the 63 + 5 Miller iterations is one

@@ -14,7 +14,8 @@ the device of the statement's tensors.
 
 Every Com product goes through `models/kernels.py` (`com_matvec`,
 `iota_prime`, `scalar_mul_vec`), so through `Curve.scalar_mul` and its two
-fused curve kernels.
+fused curve kernels, or, for a `com_matvec` with padded K >= 16, through
+the Pippenger MSM of `ops/msm.py`.
 """
 
 from __future__ import annotations

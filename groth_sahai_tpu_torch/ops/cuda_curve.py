@@ -1,23 +1,29 @@
 """Hand-written Hopper kernels of the curve group law, with their plain
 versions.
 
-The port of two kernels of ``groth_sahai_tpu/ops/pallas_curve.py``, written
-in CUDA C++ for ``sm_90a`` in ``csrc/curve_kernels.cu`` over the in-thread
-group law ``csrc/curve.cuh`` (on ``csrc/tower.cuh`` and ``csrc/field.cuh``):
+The port of four kernels of ``groth_sahai_tpu/ops/pallas_curve.py``,
+written in CUDA C++ for ``sm_90a`` in ``csrc/curve_kernels.cu`` over the
+in-thread group law ``csrc/curve.cuh`` (on ``csrc/tower.cuh`` and
+``csrc/field.cuh``):
 
-  ==========  ====================================  ==========================
-  wrapper     replaces (TPU kernel)                 computes
-  ==========  ====================================  ==========================
-  cmadd       pallas_curve.py:cmadd                 P + A, P projective, A
-                                                    affine (complete, RCB16)
-  cdbl_n_add  pallas_curve.py:cdbl_n_add            2^n P + Q, projective
-  ==========  ====================================  ==========================
+  =============  ===================================  ========================
+  wrapper        replaces (TPU kernel)                computes
+  =============  ===================================  ========================
+  cmadd          pallas_curve.py:cmadd                P + A, P projective, A
+                                                      affine (complete, RCB16)
+  cadd           pallas_curve.py:cadd                 P + Q, projective
+  cdbl_n_add     pallas_curve.py:cdbl_n_add           2^n P + Q, projective
+  cmsm_row_scan  pallas_curve.py:cmsm_row_scan        running prefix of mixed
+                                                      adds down each lane
+  =============  ===================================  ========================
 
-Both run for G1 (coordinates int64[25, *batch]) and G2 (int64[25, 2,
+All run for G1 (coordinates int64[25, *batch]) and G2 (int64[25, 2,
 *batch]); affine infinity flags are a bool batch. Coordinates are < 4p in
 and out; affine inputs < 2p. `Curve.scalar_mul` builds its window table
 with 14 `cmadd` launches and runs its 64 window steps as `cdbl_n_add` with
-n = 4.
+n = 4; the Pippenger MSM (:mod:`.msm`) runs one `cmsm_row_scan` over its
+sorted point stream, `cadd` for its lane prefix, lookups, bucket
+differences and folds, and one `cdbl_n_add` per window.
 
 The kernels' arithmetic is the reference's fused bodies (`_cmadd_body`,
 `_cdbl_body`, `_cadd_body`): Montgomery products (for Fq2 the Karatsuba
@@ -28,9 +34,9 @@ redundant form than the unfused law of `ops/proj.py` in the reference
 value.
 
 What bounds them on the H100: 11 (G1) or 55 (G2) Montgomery products per
-lane for `cmadd`, 44 or 220 for `cdbl_n_add` at n = 4, against at most
-1.8 KB of int64 limbs moved per lane: the multiplier; at the few thousand
-lanes of their calls one thread per lane leaves most of the card idle.
+lane for `cmadd` (and per lane and row for `cmsm_row_scan`), 12 or 60 for
+`cadd`, 44 or 220 for `cdbl_n_add` at n = 4, against at most 1.8 KB of
+int64 limbs moved per add: the multiplier.
 
 Dispatch rule: a CPU tensor runs the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its launches in
@@ -56,6 +62,8 @@ LIBRARY = KernelLibrary("gs_curve", "curve_kernels.cu",
                         ["curve.cuh", "tower.cuh", "field.cuh"], {
     "gs_cmadd": [_I, _I] + [_P] * 9 + [_I64, _P, _P, _U32, _P],
     "gs_cdbl_n_add": [_I, _I, _I] + [_P] * 9 + [_I64, _P, _P, _U32, _P],
+    "gs_cadd": [_I, _I] + [_P] * 9 + [_I64, _P, _P, _U32, _P],
+    "gs_cmsm_row_scan": [_I, _I, _I] + [_P] * 9 + [_I64, _P, _P, _U32, _P],
 })
 
 
@@ -196,18 +204,91 @@ def _cdbl_body(F, X, Y, Z):
     return X3, Y3, Z3                                 # Z3 < 2p
 
 
+# Lanes per step of a plain version: on the CPU a step's tensors stay in
+# cache (a G2 add over 16384 lanes runs ~3x faster in steps of 2048), on a
+# card a step bounds the memory of the int64 temporaries. The lanes are
+# independent, so the steps give the same limbs as one call.
+PLAIN_STEP_LANES = {"cpu": 2048, "cuda": 1 << 16}
+
+
+def _by_lanes(curve, body, coords, flags=()):
+    """body(*coords, *flags) over steps of the broadcast batch's lanes;
+    returns (X, Y, Z) with the batch's shape."""
+    coords, flags, batch = _broadcast(curve, coords, flags)
+    lead = coords[0].shape[:curve.ns]
+    cs = [c.reshape(lead + (-1,)) for c in coords]
+    fs = [f.reshape(-1) for f in flags]
+    m = cs[0].shape[-1]
+    step = PLAIN_STEP_LANES.get(cs[0].device.type, max(m, 1))
+    outs = [body(*(c[..., s:s + step] for c in cs),
+                 *(f[s:s + step] for f in fs))
+            for s in range(0, max(m, 1), step)]
+    return tuple(torch.cat([o[k] for o in outs], -1).reshape(lead + batch)
+                 for k in range(3))
+
+
 def cmadd_plain(p, a, curve):
-    coords, (ainf,), _ = _broadcast(curve, [*p, a[0], a[1]], [a[2]])
-    return _cmadd_body(_adapter(curve), *coords, ainf)
+    F = _adapter(curve)
+    return _by_lanes(curve, lambda *v: _cmadd_body(F, *v),
+                     [*p, a[0], a[1]], [a[2]])
 
 
 def cdbl_n_add_plain(p, n_dbl: int, q, curve):
-    coords, _, _ = _broadcast(curve, [*p, *q])
     F = _adapter(curve)
-    p = coords[:3]
-    for _ in range(n_dbl):
-        p = _cdbl_body(F, *p)
-    return _cadd_body(F, *p, *coords[3:])
+
+    def body(*c):
+        p = c[:3]
+        for _ in range(n_dbl):
+            p = _cdbl_body(F, *p)
+        return _cadd_body(F, *p, *c[3:])
+
+    return _by_lanes(curve, body, [*p, *q])
+
+
+def cadd_plain(p, q, curve):
+    F = _adapter(curve)
+    return _by_lanes(curve, lambda *v: _cadd_body(F, *v), [*p, *q])
+
+
+def _raw_rows(curve, v):
+    """A coordinate (25, *B) or (25, 2, *B) as the prefix stream's rows
+    (cr, *B): Fq2 as its c0 limb rows, then its c1 rows."""
+    if curve.ns == 1:
+        return v
+    return v.transpose(0, 1).reshape((2 * v.shape[0],) + v.shape[2:])
+
+
+def cmsm_row_scan_plain(pts_sorted, curve):
+    """Row by row (in steps of lanes): the accumulator from (0 : 1 : 0),
+    one complete mixed add per row, each row's result written into the raw
+    stream."""
+    x, y, inf = pts_sorted
+    ns, F = curve.ns, _adapter(curve)
+    rows, lanes_shape = inf.shape[0], inf.shape[1:]
+    lead = x.shape[:ns]
+    xs = x.reshape(lead + (rows, -1))
+    ys = y.reshape(lead + (rows, -1))
+    fs = inf.reshape(rows, -1)
+    m = fs.shape[1]
+    raw = [torch.empty((rows, FQ.n * ns, m), dtype=torch.int64,
+                       device=x.device) for _ in range(3)]
+    tot = [torch.empty(lead + (m,), dtype=torch.int64, device=x.device)
+           for _ in range(3)]
+    step = PLAIN_STEP_LANES.get(x.device.type, max(m, 1))
+    for s in range(0, m, step):
+        k = min(step, m - s)
+        acc = (curve.F.zeros((k,), device=x.device),
+               curve.F.one((k,), device=x.device),
+               curve.F.zeros((k,), device=x.device))
+        for r in range(rows):
+            acc = _cmadd_body(F, *acc, xs[..., r, s:s + k],
+                              ys[..., r, s:s + k], fs[r, s:s + k])
+            for c in range(3):
+                raw[c][r, :, s:s + k] = _raw_rows(curve, acc[c])
+        for c in range(3):
+            tot[c][..., s:s + k] = acc[c]
+    return (tuple(t.reshape(lead + lanes_shape) for t in tot),
+            tuple(r.reshape((rows, FQ.n * ns) + lanes_shape) for r in raw))
 
 
 # --------------------------------------------------------------------- wrappers
@@ -273,8 +354,67 @@ def cdbl_n_add(p, n_dbl: int, q, curve):
     return _launch(cdbl_n_add, curve, coords, batch, scalars=(n_dbl,))
 
 
-KERNELS = (cmadd, cdbl_n_add)
-PLAIN = {cmadd: cmadd_plain, cdbl_n_add: cdbl_n_add_plain}
+def cadd(p, q, curve):
+    """Complete projective addition P + Q as one launch.
+
+    Replaces pallas_curve.py:cadd (_cadd_kernel). Coordinates < 4p in and
+    out; batch shapes broadcast.
+    """
+    if on_cpu(*p, *q):
+        return cadd_plain(p, q, curve)
+    coords, _, batch = _broadcast(curve, [*p, *q])
+    return _launch(cadd, curve, coords, batch)
+
+
+def cmsm_row_scan(pts_sorted, curve):
+    """The per-lane running prefix of complete mixed adds, as one launch.
+
+    Replaces pallas_curve.py:cmsm_row_scan (_cmsm_scan_kernel).
+    pts_sorted = (x, y, inf): affine coordinates < 2p laid out (25, rows,
+    *lanes) for G1 or (25, 2, rows, *lanes) for G2, flags (rows, *lanes);
+    *lanes may hold a batch of independent scans. Row r of a lane adds the
+    lane's point in row r to the sum of its rows before it, from
+    (0 : 1 : 0); a flagged point adds nothing. Returns (lane totals, the
+    raw prefix stream): the totals projective (25[, 2], *lanes), the stream
+    three tensors (rows, cr, *lanes), cr = 25 ns, an Fq2 coordinate as its
+    c0 rows then its c1 rows (the reference's layout). Any lane count: the
+    kernel needs no padding.
+    """
+    x, y, inf = pts_sorted
+    if on_cpu(x, y, inf):
+        return cmsm_row_scan_plain(pts_sorted, curve)
+    if inf.device.type != "cuda" or inf.dtype != torch.bool:
+        raise ValueError(f"cmsm_row_scan flags: expected a CUDA tensor of "
+                         f"bool, got {inf.dtype} on {inf.device}")
+    n, ns = FQ.n, curve.ns
+    rows, lanes_shape = inf.shape[0], inf.shape[1:]
+    cr = n * ns
+    ins = [lanes(c, n, f"cmsm_row_scan {curve.name}").reshape(cr, rows, -1)
+           for c in (x, y)]
+    m = ins[0].shape[2]
+    if not rows or tuple(ins[1].shape) != (cr, rows, m) or \
+            inf.numel() != rows * m:
+        raise ValueError("cmsm_row_scan: x, y and inf disagree in shape, "
+                         "or there is no row")
+    flags = inf.contiguous()
+    raw = [torch.empty((rows, cr, m), dtype=torch.int64, device=x.device)
+           for _ in range(3)]
+    tot = [torch.empty((cr, m), dtype=torch.int64, device=x.device)
+           for _ in range(3)]
+    if m:
+        check(LIBRARY.get().gs_cmsm_row_scan(
+            n, ns, rows, *(t.data_ptr() for t in ins + [flags] + raw + tot),
+            m, host_words(FQ, FQ.p), host_words(FQ, FQ.r_mod_p), FQ.n0,
+            stream(x)), "cmsm_row_scan", n)
+        cmsm_row_scan.launches += 1
+    shape = x.shape[:ns] + tuple(lanes_shape)
+    return (tuple(t.reshape(shape) for t in tot),
+            tuple(r.reshape((rows, cr) + tuple(lanes_shape)) for r in raw))
+
+
+KERNELS = (cmadd, cdbl_n_add, cadd, cmsm_row_scan)
+PLAIN = {cmadd: cmadd_plain, cdbl_n_add: cdbl_n_add_plain, cadd: cadd_plain,
+         cmsm_row_scan: cmsm_row_scan_plain}
 for _k in KERNELS:
     _k.launches = 0
 

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the Fq12 tower, with their plain versions.
 
-The port of six kernels of ``groth_sahai_tpu/ops/pallas_tower.py``, written
+The port of eight kernels of ``groth_sahai_tpu/ops/pallas_tower.py``, written
 in CUDA C++ for ``sm_90a`` in ``csrc/tower_kernels.cu`` over the in-thread
 tower formulas ``csrc/tower.cuh`` (on ``csrc/field.cuh``):
 
@@ -14,6 +14,8 @@ tower formulas ``csrc/tower.cuh`` (on ``csrc/field.cuh``):
   miller_iter_dbl  pallas_tower.py:miller_iter_dbl    f^2 line_RR(P), 2R
   miller_iter_add  pallas_tower.py:miller_iter_add    f line_RQ(P), R + Q
   f12_pow_dyn      pallas_tower.py:f12_pow_dyn        a^s, per-lane 272-bit s
+  miller_dbl_step  pallas_tower.py:miller_dbl_step    2R and line_{R,R}
+  miller_add_step  pallas_tower.py:miller_add_step    R + Q and line_{R,Q}
   ===============  =================================  ========================
 
 All compute in the narrow domain: every Fq product is a Montgomery product
@@ -23,7 +25,9 @@ another redundant form than the tower's lazy (wide-domain) formulas in
 :mod:`.tower`: the same value mod p, not always the same limbs. The tower
 (`FQ12.mul`, `sqr`, `cyclotomic_sqr`, `cyclotomic_pow`) and the pairing
 (`miller_loop`, `gt_exp`) take these kernels for batches of at most 4096
-lanes, as the reference does.
+lanes, as the reference does. The two step kernels are the point update and
+line of one Miller iteration alone, entry points with no caller in either
+package (the iterations supersede them).
 
 What bounds them on the H100: an Fq12 product is 66 Montgomery products
 per lane (82,500 16x16-bit multiply-adds) against 7.2 KB of int64 limbs
@@ -58,6 +62,8 @@ LIBRARY = KernelLibrary("gs_tower", "tower_kernels.cu",
     "gs_miller_iter_dbl": [_I] + [_P] * 10 + [_I64, _P, _P, _P, _U32, _P],
     "gs_miller_iter_add": [_I] + [_P] * 12 + [_I64, _P, _P, _U32, _P],
     "gs_f12_pow_dyn": [_I, _I, _P, _P, _P, _I64, _P, _P, _U32, _P],
+    "gs_miller_dbl_step": [_I] + [_P] * 9 + [_I64, _P, _P, _P, _U32, _P],
+    "gs_miller_add_step": [_I] + [_P] * 11 + [_I64, _P, _P, _U32, _P],
 })
 
 CYC_POW_NBITS = 64     # the kernel's fixed schedule: e < 2^64
@@ -295,6 +301,18 @@ def miller_iter_add_plain(f, R, Q, px, py):
     return _sparse_line_mul_plain(f, l0, lb, lc), R3
 
 
+def miller_dbl_step_plain(Rp, two_inv_int: int):
+    """(2R, (l0, l1, l2)) of the doubling step; 1/2 = two_inv_int."""
+    X, Y, Z = torch.broadcast_tensors(*Rp)
+    tinv = FQ._const(two_inv_int * FQ.r_mod_p % FQ.p, 1, X.device)
+    return _dbl_step_plain(X, Y, Z, tinv)
+
+
+def miller_add_step_plain(Rp, q_aff):
+    """(R + Q, (l0, l1, l2)) of the mixed addition step."""
+    return _add_step_plain(*torch.broadcast_tensors(*Rp, *q_aff[:2]))
+
+
 POW_DYN_NBITS = 16 * FR.n   # f12_pow_dyn's schedule: all 272 scalar bits
 
 
@@ -474,12 +492,61 @@ def f12_pow_dyn(a, s):
     return out.reshape(a.shape)
 
 
+def _step_launch(wrapper, fq2s, extra):
+    """Launch the Miller-step kernel of `wrapper` over Fq2 inputs of one
+    broadcast batch and count it; returns ((X3, Y3, Z3), (l0, l1, l2))."""
+    name = wrapper.__name__
+    n = FQ.n
+    fq2s = torch.broadcast_tensors(*fq2s)
+    ins = [lanes(x, n, f"{name} Fq2").reshape(2 * n, -1) for x in fq2s]
+    m = ins[0].shape[1]
+    outs = [torch.empty_like(ins[0]) for _ in range(6)]
+    if m:
+        fn = getattr(LIBRARY.get(), "gs_" + name)
+        check(fn(n, *(x.data_ptr() for x in ins + outs), m,
+                 host_words(FQ, FQ.p), host_words(FQ, FQ.r_mod_p), *extra,
+                 FQ.n0, stream(ins[0])), name, n)
+        wrapper.launches += 1
+    outs = [o.reshape(fq2s[0].shape) for o in outs]
+    return tuple(outs[:3]), tuple(outs[3:])
+
+
+def miller_dbl_step(Rp, two_inv_int: int):
+    """The Miller doubling step as one launch: (2R, (l0, l1, l2)), the line
+    not scaled by P.
+
+    Replaces pallas_tower.py:miller_dbl_step (_miller_dbl_kernel). R = (X,
+    Y, Z) Fq2 (25, 2, *batch) with X, Z < 2p, Y < 10p; two_inv_int is 1/2
+    mod p as an int (the kernel takes it in Montgomery form). Returns 2R
+    (X3 < 2p, Y3 < 10p, Z3 < 2p) and the line l0 = i < 50p, l1 = 3j < 6p,
+    l2 = -h < 8p, each Fq2 (25, 2, *batch). Batch shapes broadcast.
+    """
+    if on_cpu(*Rp):
+        return miller_dbl_step_plain(Rp, two_inv_int)
+    tinv = two_inv_int * FQ.r_mod_p % FQ.p
+    return _step_launch(miller_dbl_step, list(Rp), [host_words(FQ, tinv)])
+
+
+def miller_add_step(Rp, q_aff):
+    """The Miller mixed addition step as one launch: (R + Q, (l0, l1, l2)).
+
+    Replaces pallas_tower.py:miller_add_step (_miller_add_kernel). R as in
+    `miller_dbl_step`, Q = (xq, yq[, ...]) affine Fq2 < p. Returns R + Q
+    (Y3 < 4p) and the line j < 4p, -theta < 16p, lambda < 4p.
+    """
+    if on_cpu(*Rp, *q_aff[:2]):
+        return miller_add_step_plain(Rp, q_aff)
+    return _step_launch(miller_add_step, list(Rp) + list(q_aff[:2]), [])
+
+
 KERNELS = (fq12_mul, cyc_pow, cyc_sqr, miller_iter_dbl, miller_iter_add,
-           f12_pow_dyn)
+           f12_pow_dyn, miller_dbl_step, miller_add_step)
 PLAIN = {fq12_mul: fq12_mul_plain, cyc_pow: cyc_pow_plain,
          cyc_sqr: cyc_sqr_plain, miller_iter_dbl: miller_iter_dbl_plain,
          miller_iter_add: miller_iter_add_plain,
-         f12_pow_dyn: f12_pow_dyn_plain}
+         f12_pow_dyn: f12_pow_dyn_plain,
+         miller_dbl_step: miller_dbl_step_plain,
+         miller_add_step: miller_add_step_plain}
 for _k in KERNELS:
     _k.launches = 0
 

@@ -1,11 +1,13 @@
 """Homogeneous projective points for the complete group law (RCB16).
 
-The port of the data half of ``groth_sahai_tpu/ops/proj.py``: the point at
-infinity, conversions to and from affine and Jacobian form, equality and
-select. The complete law itself runs in the fused kernels of
-:mod:`.cuda_curve` (`cmadd`, `cdbl_n_add`), which is how `scalar_mul`
-reaches it; the reference's unfused `madd`, `add`, `dbl`, `dbl_n` and
-`sum_reduce` serve its non-fused branch and its MSM, and come with the MSM.
+The port of ``groth_sahai_tpu/ops/proj.py``: the point at infinity,
+conversions to and from affine and Jacobian form, equality and select, and
+the complete law under the reference's names (`madd`, `add`, `dbl`,
+`dbl_n`, `sum_reduce`) as thin functions over the fused kernels of
+:mod:`.cuda_curve` (`cmadd`, `cadd`, `cdbl_n_add`). The reference's unfused
+law multiplies by a Montgomery constant 3b where its fused bodies (and so
+these kernels) multiply by 12: the same law by value, another redundant
+form by limb; the port keeps the one form.
 
 Representation: (X, Y, Z) homogeneous, x = X/Z, y = Y/Z; infinity is
 (0, y, 0) for any y != 0. Mixed inputs are the affine (x, y, inf) triples
@@ -13,6 +15,10 @@ of :mod:`.curve`. Coordinates stay < 4p (the kernels' invariant).
 """
 
 from __future__ import annotations
+
+import torch
+
+from . import cuda_curve as CC
 
 
 def inf(curve, batch_shape=(), device="cuda"):
@@ -79,3 +85,47 @@ def eq(curve, p, q):
 
 def select(curve, mask, p, q):
     return tuple(curve.select(mask, x, y) for x, y in zip(p, q))
+
+
+def madd(curve, p, a):
+    """Complete mixed addition P + A (RCB16 Algorithm 8): one `cmadd`.
+
+    p projective (coords < 4p); a affine (x, y, inf), coords < 2p.
+    """
+    return CC.cmadd(p, a, curve)
+
+
+def add(curve, p, q):
+    """Complete projective addition P + Q (RCB16 Algorithm 7): one `cadd`;
+    coords < 4p in and out."""
+    return CC.cadd(p, q, curve)
+
+
+def dbl_n(curve, p, n: int):
+    """n complete doublings (RCB16 Algorithm 9): one `cdbl_n_add` launch,
+    2^n P + (0 : 1 : 0)."""
+    o = inf(curve, p[0].shape[curve.ns:], device=p[0].device)
+    return CC.cdbl_n_add(p, n, o, curve)
+
+
+def dbl(curve, p):
+    return dbl_n(curve, p, 1)
+
+
+def sum_reduce(curve, p, axis: int = 0):
+    """Tree-reduce a batch axis with the complete addition (`cadd`)."""
+    ax = curve.ns + axis
+    pts = p
+    size = pts[0].shape[ax]
+    while size > 1:
+        half = size // 2
+        summed = add(curve, tuple(l.narrow(ax, 0, half) for l in pts),
+                     tuple(l.narrow(ax, half, half) for l in pts))
+        if size % 2:
+            summed = tuple(torch.cat([a, l.narrow(ax, 2 * half, 1)], ax)
+                           for a, l in zip(summed, pts))
+            size = half + 1
+        else:
+            size = half
+        pts = summed
+    return tuple(l.select(ax, 0) for l in pts)

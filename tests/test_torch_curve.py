@@ -390,15 +390,6 @@ def test_scalar_mul_matches_host(name):
     assert {k: k.launches for k in CC.KERNELS} == before   # CPU: no launch
 
 
-def test_com_matvec_takes_only_the_small_k_branch():
-    """Padded K >= 16 is the reference's MSM branch: the port raises."""
-    x = torch.zeros((NL, 2, 16), dtype=torch.int64)
-    com = (x, x, torch.ones((2, 16), dtype=torch.bool))
-    s = torch.zeros((17, 1, 16), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="MSM"):
-        CG.com_matvec(G1, s, com)
-
-
 @pytest.mark.gpu
 def test_curve_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
