@@ -267,10 +267,6 @@ EXACT["miller-steps-4096", "miller_dbl_step"] = 63
 EXACT["miller-steps-4096", "miller_add_step"] = 5
 
 
-def next_pow2(k: int) -> int:
-    return 1 if k <= 1 else 1 << (k - 1).bit_length()
-
-
 def msm_geometry(n_points: int, window: int = 0):
     """(window, width, rows, n_windows, nbuck) of one `msm` call over
     n_points points, from ops/msm.py's rules."""
@@ -284,6 +280,7 @@ def msm_geometry(n_points: int, window: int = 0):
 
 def ppe_window(k: int) -> int:
     """com_matvec's MSM window at K (padded to Kp): 4 below 512, else 8."""
+    from groth_sahai_tpu_torch.models.kernels import next_pow2
     return 4 if next_pow2(k) < 512 else 8
 
 
@@ -305,6 +302,7 @@ def msm_launches(n_points: int, window: int = 0) -> dict:
 
 def msm_calls() -> dict:
     """path -> the (points, window) of each msm call it makes."""
+    from groth_sahai_tpu_torch.models.kernels import next_pow2
     kp = next_pow2(PPE_M)
     return {"msm-g1-65536": [(MSM_POINTS, 0)],
             "prove-ppe-334": [(kp, ppe_window(PPE_M))] * 4,
@@ -354,6 +352,35 @@ def reset_counts():
 
 def read_counts():
     return {name: k.launches for name, k in kernels().items()}
+
+
+def reset_peak():
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib() -> float:
+    """The card's peak allocated memory since `reset_peak` (0 without a
+    card)."""
+    import torch
+    return (torch.cuda.max_memory_allocated() / 2 ** 30
+            if torch.cuda.is_available() else 0.0)
+
+
+def counted(fn, shapes, module=None):
+    """One counted run of a path: launch counts from 0, every launch's
+    shape recorded, the card's peak memory. With `module` (a kernel
+    module the path calls itself), fn takes its recording copy. Returns
+    (output, counts, seconds, peak GiB)."""
+    reset_counts()
+    reset_peak()
+    with recording(shapes) as proxies:
+        t0 = time.perf_counter()
+        out = fn(proxies[module.__name__]) if module else fn()
+        sync()
+        secs = time.perf_counter() - t0
+    return out, read_counts(), secs, peak_gib()
 
 
 def time_ms(fn, reps: int) -> float:
@@ -697,6 +724,7 @@ def msm_shapes(name):
     MSMs (G2), msm-g1-65536's one (G1) and prove-ppe-334's four (G2);
     cadd at the prefix lookups of the same calls (n_windows nbuck lanes
     per MSM), the widest cadd of each path."""
+    from groth_sahai_tpu_torch.models.kernels import next_pow2
     _, width, rows, nw, nb = msm_geometry(MSM_POINTS)
     _, pwidth, prows, pnw, pnb = msm_geometry(next_pow2(PPE_M),
                                               ppe_window(PPE_M))
@@ -931,6 +959,7 @@ def run_pairing(path, n, device, mult1, mult2, rng, shapes):
     sync()
 
     reset_counts()
+    reset_peak()
     with recording(shapes):
         t0 = time.perf_counter()
         e = pairing(P, Q)
@@ -938,7 +967,7 @@ def run_pairing(path, n, device, mult1, mult2, rng, shapes):
         secs = time.perf_counter() - t0
         csq = FQ12.cyclotomic_sqr(e) if n <= FUSED_MAX_LANES else None
         sync()
-    counts = read_counts()
+    counts, peak = read_counts(), peak_gib()
 
     t0 = time.perf_counter()
     if tuple(e.shape) != (25, 12, n):
@@ -956,9 +985,9 @@ def run_pairing(path, n, device, mult1, mult2, rng, shapes):
         if not bool(FQ12.eq(csq, FQ12.sqr(e), k=2).all()):
             raise AssertionError(f"{path}: cyclotomic_sqr differs from sqr")
         extra = "; cyclotomic_sqr of all lanes equals sqr"
-    print(f"[{path}] {n} pairs: {secs:.3f} s on the card; lanes {sample} "
-          f"match the host; GT product of all lanes matches{extra}",
-          flush=True)
+    print(f"[{path}] {n} pairs: {secs:.3f} s on the card, peak "
+          f"{peak:.2f} GiB; lanes {sample} match the host; GT product "
+          f"of all lanes matches{extra}", flush=True)
     return counts, secs, time.perf_counter() - t0, (P, Q), (e, a, b)
 
 
@@ -995,14 +1024,8 @@ def run_signed(path, k, mask, device, mult1, mult2, rng, shapes):
     com1, com2, sa, sb = signed_inputs(k, mult1, mult2, rng, device)
     sync()
 
-    reset_counts()
-    with recording(shapes):
-        t0 = time.perf_counter()
-        f = MK.miller_product_signed(com1, com2, mask)
-        out = MK.final_exp(f)
-        sync()
-        secs = time.perf_counter() - t0
-    counts = read_counts()
+    out, counts, secs, peak = counted(lambda: MK.final_exp(
+        MK.miller_product_signed(com1, com2, mask)), shapes)
 
     t0 = time.perf_counter()
     if tuple(out.shape) != (25, 12, 2, 2):
@@ -1021,8 +1044,8 @@ def run_signed(path, k, mask, device, mult1, mult2, rng, shapes):
     if bool(CG.comt_eq(out, changed.reshape(25, 12, 2, 2))):
         raise AssertionError(f"{path}: comt_eq holds on a changed entry")
     print(f"[{path}] Kp={MK.next_pow2(k)} (K={k}): {secs:.3f} s on the "
-          f"card; all four entries match the host; comt_eq true, and false "
-          f"with one entry changed", flush=True)
+          f"card, peak {peak:.2f} GiB; all four entries match the host; "
+          f"comt_eq true, and false with one entry changed", flush=True)
     return counts, secs, time.perf_counter() - t0, (com1, com2, mask)
 
 
@@ -1053,14 +1076,9 @@ def run_gt_exp(device, pair_out, rng, shapes):
     base2[:, :, raw_lanes] = FQ12.from_ints(raw, device=device)
     sync()
 
-    reset_counts()
-    with recording(shapes):
-        t0 = time.perf_counter()
-        out1 = gt_exp(base1, rho_t.reshape(FR.n, n, 1, 1))
-        out2 = gt_exp(base2, rho_t)
-        sync()
-        secs = time.perf_counter() - t0
-    counts = read_counts()
+    (out1, out2), counts, secs, peak = counted(lambda: (
+        gt_exp(base1, rho_t.reshape(FR.n, n, 1, 1)), gt_exp(base2, rho_t)),
+        shapes)
 
     t0 = time.perf_counter()
     if tuple(out1.shape) != (25, 12, n, 2, 2) or \
@@ -1079,7 +1097,8 @@ def run_gt_exp(device, pair_out, rng, shapes):
             raise AssertionError(f"gt-exp-4096: lane {lane} of the ({n}) "
                                  f"call differs from the host")
     print(f"[gt-exp-4096] ({n}, 2, 2) and ({n}): {secs:.3f} s on the "
-          f"card; product of all {4 * n} lanes matches; lanes {sample} (raw "
+          f"card, peak {peak:.2f} GiB; product of all {4 * n} lanes matches; "
+          f"lanes {sample} (raw "
           f"Miller outputs at {raw_lanes}) match the host", flush=True)
     return counts, secs, time.perf_counter() - t0, (base1, base2, rho_t)
 
@@ -1140,13 +1159,7 @@ def run_commit(path, device, logs, rng, shapes):
     def run():
         return fn(*args, crs, GsRng(seed))
 
-    reset_counts()
-    with recording(shapes):
-        t0 = time.perf_counter()
-        com = run()
-        sync()
-        secs = time.perf_counter() - t0
-    counts = read_counts()
+    com, counts, secs, peak = counted(run, shapes)
 
     t0 = time.perf_counter()
     x, _, inf = com.coms
@@ -1169,7 +1182,8 @@ def run_commit(path, device, logs, rng, shapes):
                 raise AssertionError(f"{path}: commitment {i}, component {c} "
                                      f"differs from the host")
     print(f"[{path}] {m} commitments ({2 * m * w} Fr draws): {secs:.3f} s "
-          f"on the card; all {2 * m} points match the host", flush=True)
+          f"on the card, peak {peak:.2f} GiB; all {2 * m} points match the "
+          f"host", flush=True)
     return counts, secs, time.perf_counter() - t0, run
 
 
@@ -1197,14 +1211,7 @@ def run_scalar_mul(device, mult1, rng, shapes):
     def run():
         return G1.scalar_mul(pts, s)
 
-    reset_counts()
-    with recording(shapes):
-        t0 = time.perf_counter()
-        out = run()
-        sync()
-        secs = time.perf_counter() - t0
-    counts = read_counts()
-
+    out, counts, secs, peak = counted(run, shapes)
     t0 = time.perf_counter()
     g1 = (C.G1_GEN_X, C.G1_GEN_Y)
     lanes = list(range(5)) + sorted(rng.sample(range(5, n), min(512, n - 5)))
@@ -1219,9 +1226,9 @@ def run_scalar_mul(device, mult1, rng, shapes):
     if total != H.g1_mul(g1, sum(x * y for x, y in zip(a, sc))):
         raise AssertionError("scalar-mul-g1-4096: the sum of all lanes is "
                              "wrong")
-    print(f"[scalar-mul-g1-4096] {n} points: {secs:.3f} s on the card; "
-          f"{len(lanes)} lanes (edges 0..4) and the sum of all lanes match "
-          f"the host", flush=True)
+    print(f"[scalar-mul-g1-4096] {n} points: {secs:.3f} s on the card, peak "
+          f"{peak:.2f} GiB; {len(lanes)} lanes (edges 0..4) and the sum of "
+          f"all lanes match the host", flush=True)
     return counts, secs, time.perf_counter() - t0, run
 
 
@@ -1290,21 +1297,15 @@ def run_e2e(device, shapes):
                         verify(make(t + 1), proof, crs)))
         return out
 
-    reset_counts()
-    with recording(shapes):
-        t0 = time.perf_counter()
-        out = run()
-        sync()
-        secs = time.perf_counter() - t0
-    counts = read_counts()
+    out, counts, secs, peak = counted(run, shapes)
     t0 = time.perf_counter()
     for name, good, bad in out:
         if not good or bad:
             raise AssertionError(f"gs-e2e: {name} verifies {good}, with a "
                                  f"wrong target {bad}")
     print(f"[gs-e2e] {', '.join(n for n, _, _ in out)}: {secs:.3f} s with "
-          f"the host's CRS and targets; each verifies, and fails with a "
-          f"wrong target", flush=True)
+          f"the host's CRS and targets, peak {peak:.2f} GiB; each verifies, "
+          f"and fails with a wrong target", flush=True)
     return counts, secs, time.perf_counter() - t0, run
 
 
@@ -1358,52 +1359,17 @@ def run_ppe_8x8(device, rng, shapes):
         proof.equ_proofs[0].pi = bad_pi
         return good, verify(equ, proof, crs)
 
-    reset_counts()
-    with recording(shapes):
-        t0 = time.perf_counter()
-        good, bad = run()
-        sync()
-        secs = time.perf_counter() - t0
-    counts = read_counts()
+    (good, bad), counts, secs, peak = counted(run, shapes)
     if not good or bad:
         raise AssertionError(f"prove-verify-ppe-8x8: verifies {good}, with "
                              f"pi changed {bad}")
     print(f"[prove-verify-ppe-8x8] m = n = {m} (K = {n + 2 * m + 4} Miller "
-          f"pairs): {secs:.3f} s; verifies, and fails with pi changed",
-          flush=True)
+          f"pairs): {secs:.3f} s, peak {peak:.2f} GiB; verifies, and fails "
+          f"with pi changed", flush=True)
     return counts, secs, 0.0, run
 
 
 # ---------------------------------------------------- phase 3: MSM paths
-
-def reset_peak():
-    import torch
-    if torch.cuda.is_available():
-        torch.cuda.reset_peak_memory_stats()
-
-
-def peak_gib() -> float:
-    """The card's peak allocated memory since `reset_peak` (0 without a
-    card)."""
-    import torch
-    return (torch.cuda.max_memory_allocated() / 2 ** 30
-            if torch.cuda.is_available() else 0.0)
-
-
-def counted(fn, shapes, module=None):
-    """One counted run of a path: launch counts from 0, every launch's
-    shape recorded, the card's peak memory. With `module` (a kernel
-    module the path calls itself), fn takes its recording copy. Returns
-    (output, counts, seconds, peak GiB)."""
-    reset_counts()
-    reset_peak()
-    with recording(shapes) as proxies:
-        t0 = time.perf_counter()
-        out = fn(proxies[module.__name__]) if module else fn()
-        sync()
-        secs = time.perf_counter() - t0
-    return out, read_counts(), secs, peak_gib()
-
 
 def run_msm_g1(device, mult1, rng, shapes):
     """msm-g1-65536: `msm(G1, ...)` over MSM_POINTS points a_i G1 (a_i
