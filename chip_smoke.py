@@ -7,8 +7,9 @@ Phases (any failure exits non-zero and prints no result line):
 
   1. build   -- nvcc builds the kernel libraries from groth_sahai_tpu_torch/csrc
                 for sm_90a, one process per source, all at once; prints the
-                build time, the compiler's resource report and the card's
-                name and power limit;
+                build time, the compiler's resource report, the card's
+                name and power limit, and from cuobjdump the instructions of
+                the packed-word curve kernels and their Montgomery product;
   2. kernels -- each of the sixteen kernels against its plain PyTorch version on
                 the card, bit-exact, at the paths' main shapes: the field
                 kernels at Fq width over the pairing's stacks (16384,
@@ -1678,22 +1679,27 @@ def run_gs_paths(device, mult1, mult2, rng, phases, by_path, shapes, runs):
 def bound_ms(name: str, lanes: int, args) -> tuple:
     """The least time of one launch on this card: (ms, "bytes" or
     "operations"). Bytes: int64 limbs read and written once (8 bytes per
-    16-bit limb). Operations: 16x16-bit products, one 32-bit multiply-add
-    each -- CIOS 2n^2 per Montgomery product, n^2 for a schoolbook product
-    or a reduction; an Fq12 product is 66 Montgomery products (54 Karatsuba
-    + 12 post-reductions), a cyclotomic square 30 (18 + 12), a Miller
-    doubling iteration 176 (66 for f^2, 49 for the point step, 4 to scale
-    the line, 57 for the sparse product), an addition iteration 126 (65 +
-    4 + 57); a complete mixed add 11, a complete doubling 8, a complete
-    add 12 (each Fq2 product on G2 five), the row scan 11 per row; the
-    Miller doubling step 49, the addition step 65. The chains count what
-    this input needs: a square per bit, a product per set bit (for
-    f12_pow_dyn, each lane's own scalar bits)."""
+    16-bit limb). Operations: 32-bit multiply-adds of a multiplier on
+    packed 32-bit words, two per word product (its low and its high half):
+    an Fq value is w = 13 words and p pw = 12, so a Montgomery product at
+    R = 2^400 is 2 (w^2 + w pw) = 650 (the product's w^2 word products
+    and the reduction's w pw, 12 steps of 2^32 and one of 2^16), a
+    schoolbook product 2 w^2 = 338, a reduction 2 w pw = 312; an Fq12
+    product is 66 Montgomery products (54 Karatsuba + 12 post-reductions),
+    a cyclotomic square 30 (18 + 12), a Miller doubling iteration 176 (66
+    for f^2, 49 for the point step, 4 to scale the line, 57 for the sparse
+    product), an addition iteration 126 (65 + 4 + 57); a complete mixed
+    add 11, a complete doubling 8, a complete add 12 (each Fq2 product on
+    G2 five), the row scan 11 per row; the Miller doubling step 49, the
+    addition step 65. The chains count what this input needs: a square
+    per bit, a product per set bit (for f12_pow_dyn, each lane's own
+    scalar bits). One yardstick for every kernel, whatever its limbs."""
     from groth_sahai_tpu_torch.ops import cuda_fp as K
     from groth_sahai_tpu_torch.ops import cuda_tower as CT
     from groth_sahai_tpu_torch.ops.fp import FQ, FR
     n = FQ.n
-    mont = 2 * n * n
+    w, pw = (n + 1) // 2, (FQ.p.bit_length() + 31) // 32
+    mont = 2 * (w * w + w * pw)
     if name == "pow_const":
         bits = K.exponent_bits(args[-1])
         products = (len(bits) + sum(bits)) * mont
@@ -1723,7 +1729,8 @@ def bound_ms(name: str, lanes: int, args) -> tuple:
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                      else "operations")
     else:
-        products = {"mont_mul": mont, "mul_wide": n * n, "redc": n * n,
+        products = {"mont_mul": mont, "mul_wide": 2 * w * w,
+                    "redc": 2 * w * pw,
                     "fq12_mul": 66 * mont, "cyc_sqr": 30 * mont,
                     "miller_iter_dbl": 176 * mont,
                     "miller_iter_add": 126 * mont,
@@ -1954,6 +1961,9 @@ def main() -> int:
                     print("    " + line.strip(), flush=True)
         print(f"[build] {len(libs)} libraries in {phases['build']:.1f} s on "
               f"{card}", flush=True)
+        from groth_sahai_tpu_torch.utils.curve_variants import sass_report
+        for line in sass_report(cuda_curve.LIBRARY.path()):
+            print(f"[sass] {line}", flush=True)
 
         t0 = time.perf_counter()
         worst, timing, checked = check_kernels(device)

@@ -8,7 +8,7 @@
 //   gs_cmsm_row_scan <- pallas_curve.cmsm_row_scan (_cmsm_scan_kernel: the
 //                       running prefix of _cmadd_body down each lane)
 //
-// All run the complete projective law of curve.cuh, for G1 (ns = 1, Fq
+// All run the complete projective law (RCB16, a = 0), for G1 (ns = 1, Fq
 // coordinates) or G2 (ns = 2, Fq2 coordinates). cmadd and cdbl_n_add carry
 // Curve.scalar_mul: its 2^4-entry window table is built with 14 cmadd
 // launches, and each of its 64 window steps is one cdbl_n_add launch with
@@ -17,25 +17,50 @@
 // bucket differences and the window folds, and one cdbl_n_add per window
 // (n_dbl = the window) to combine the windows.
 //
-// Work split: one thread per lane, as in tower_kernels.cu; a G1 coordinate
-// batch is int64 [25, M] (limb i of lane l at i M + l), a G2 coordinate
-// batch [25, 2, M], the affine infinity flags one byte per lane, so the
-// threads of a warp read neighbouring words. Blocks of 32 threads spread
-// the lanes of a call over the SMs. The row scan keeps the order of its
-// rows inside each thread: Hopper has no ordered grid axis to carry the
-// accumulator across (the TPU kernel's sequential grid and VMEM scratch),
-// so a thread walks its lane's rows in a loop with the accumulator in
-// local memory, reading row r of its lane and writing its prefix.
+// Work split: one thread per lane. A G1 coordinate batch is int64 [25, M]
+// (limb i of lane l at i M + l), a G2 coordinate batch [25, 2, M], the
+// affine infinity flags one byte per lane, so the threads of a warp read
+// neighbouring words.
 //
-// What bounds them on the H100: per lane and launch cmadd makes 11
-// Montgomery products on G1 (55 on G2), cadd 12 (60), cdbl_n_add with
-// n_dbl = 4 makes 4 x 8 + 12 = 44 (220), the row scan 11 (55) per row, each
-// 1,250 16x16-bit multiply-adds, against 0.9 KB (1.8 KB) of int64 limbs
-// moved per add: all are bound by the multiplier. At the few thousand
-// lanes of the scalar multiplications one thread per lane leaves most of
-// the card idle, and each thread's dependent chain of products, out of
-// local memory, sets the time; the MSM's cadd calls reach millions of
-// lanes.
+// cmadd and cdbl_n_add run curve.cuh's group law on 16-bit limbs, one
+// limb per 32-bit word, in blocks of 32 threads. What bounds them: each of
+// their products (mont_mul, 1,250 16x16-bit multiply-adds) reads its
+// operands from the thread's local memory through an out-of-line call; at
+// the few thousand lanes of the scalar multiplications one thread per lane
+// leaves most of the card idle, and each thread's chain of dependent
+// products sets the time.
+//
+// cadd and cmsm_row_scan carry the MSM's widest launches (up to 2.76 M G2
+// lanes, and 85,504 G2 lanes x 128 rows at verify-ppe-334), where the card
+// is full and the multiplier bounds them: 60 Montgomery products per G2
+// add and 55 per G2 row against at most 1.8 KB of int64 limbs moved. Their
+// design (curve_w32.cuh over field_w32.cuh) is for that bound:
+//   * an Fq value is 13 packed 32-bit words, and a Montgomery product at
+//     R = 2^400 is 12 CIOS steps of 2^32 plus one of 2^16 in PTX carry
+//     chains, 650 word-product halves (multiply-adds) against 1,250; the
+//     result is the same integer, so the limbs at the boundary do not
+//     change;
+//   * the bodies are inlined, so an add's working values stay in
+//     registers, and call one out-of-line Montgomery product whose
+//     operands and result pass in registers: one copy of its code serves
+//     all 60 products of a G2 add (inlined at each, the kernels grew to
+//     36,000-100,000 instructions and their fetch set the time); the values
+//     that wait longest (the inputs, the row scan's accumulator, t3 and
+//     t4) live in the thread's column of shared memory (Column, word i at
+//     i B + thread), not in local memory (ptxas spills 32 B of the G2
+//     row scan, no more);
+//   * the row scan keeps its accumulator in shared memory across rows and
+//     copies row r + 1's affine point (the low word of each int64 limb)
+//     into its stage with cp.async as soon as row r's point is read,
+//     so the copy runs under row r's last six products; the next row's
+//     flag is loaded a row ahead;
+//   * blocks of kWThreads = 64 threads; the shared memory of a block is
+//     91 S words a thread for cadd, 102 S for the row scan (S = 1 on G1,
+//     2 on G2), so on G2 four blocks (8 warps, the most that 255
+//     registers a thread allow) fit an SM.
+// Rows stay in order inside each lane: Hopper has no ordered grid axis to
+// carry the accumulator across (the TPU kernel's sequential grid and VMEM
+// scratch).
 //
 // Plain C interface for ctypes. Each entry point returns cudaGetLastError()
 // after its launch (0 = success), or -1 for a limb count other than 25 or
@@ -45,7 +70,9 @@
 #include <cstdint>
 
 #include "curve.cuh"
+#include "curve_w32.cuh"
 #include "field.cuh"
+#include "field_w32.cuh"
 
 namespace {
 
@@ -53,8 +80,12 @@ using gs::curve::FieldQ;
 using gs::curve::Fq2A;
 using gs::curve::FqA;
 using gs::curve::N;
+using gs::w32::Column;
+using gs::w32::FieldW;
+using gs::w32::kWords;
 
-constexpr int kThreads = 32;
+constexpr int kThreads = 32;    // cmadd, cdbl_n_add
+constexpr int kWThreads = 64;   // cadd, cmsm_row_scan
 
 // Complete projective + affine add: (X1 : Y1 : Z1) + (x2, y2), the
 // accumulator unchanged where the affine point is at infinity.
@@ -76,105 +107,6 @@ cmadd_kernel(const __grid_constant__ FieldQ f, const int64_t* X1,
   F::store(oX, m, lane, X3);
   F::store(oY, m, lane, Y3);
   F::store(oZ, m, lane, Z3);
-}
-
-// Complete projective add P + Q (coordinates < 4p in and out).
-template <class F>
-__global__ void __launch_bounds__(kThreads)
-cadd_kernel(const __grid_constant__ FieldQ f, const int64_t* X1,
-            const int64_t* Y1, const int64_t* Z1, const int64_t* X2,
-            const int64_t* Y2, const int64_t* Z2, int64_t* oX, int64_t* oY,
-            int64_t* oZ, int64_t m) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (lane >= m) return;
-  typename F::T X, Y, Z, Xq, Yq, Zq, X3, Y3, Z3;
-  F::load(X1, m, lane, X);
-  F::load(Y1, m, lane, Y);
-  F::load(Z1, m, lane, Z);
-  F::load(X2, m, lane, Xq);
-  F::load(Y2, m, lane, Yq);
-  F::load(Z2, m, lane, Zq);
-  gs::curve::cadd_body<F>(f, X, Y, Z, Xq, Yq, Zq, X3, Y3, Z3);
-  F::store(oX, m, lane, X3);
-  F::store(oY, m, lane, Y3);
-  F::store(oZ, m, lane, Z3);
-}
-
-// The point at infinity (0 : 1 : 0), 1 in Montgomery form.
-__device__ __forceinline__ void set_inf(const FieldQ& f, gs::tower::Fp& X,
-                                        gs::tower::Fp& Y, gs::tower::Fp& Z) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    X[i] = 0;
-    Y[i] = f.one[i];
-    Z[i] = 0;
-  }
-}
-
-__device__ __forceinline__ void set_inf(const FieldQ& f, gs::tower::Fp2& X,
-                                        gs::tower::Fp2& Y,
-                                        gs::tower::Fp2& Z) {
-  set_inf(f, X[0], Y[0], Z[0]);
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    X[1][i] = 0;
-    Y[1][i] = 0;
-    Z[1][i] = 0;
-  }
-}
-
-// Lane `lane` of one row of the raw prefix stream, (cr, M): an Fq value's
-// 25 limb rows; an Fq2 value's c0 rows, then its c1 rows (the reference's
-// raw layout, pallas_curve.cmsm_row_scan).
-__device__ __forceinline__ void store_raw(int64_t* dst, int64_t m,
-                                          int64_t lane,
-                                          const gs::tower::Fp& x) {
-  FqA::store(dst, m, lane, x);
-}
-
-__device__ __forceinline__ void store_raw(int64_t* dst, int64_t m,
-                                          int64_t lane,
-                                          const gs::tower::Fp2& x) {
-  FqA::store(dst, m, lane, x[0]);
-  FqA::store(dst + N * m, m, lane, x[1]);
-}
-
-// The running prefix of complete mixed adds down each lane's rows, from
-// (0 : 1 : 0): row r of lane l is the sum of the lane's affine points in
-// rows 0..r (a point with its flag set adds nothing). Inputs: x, y in the
-// point layout with the row axis before the lanes ([25, rows, M] for G1,
-// [25, 2, rows, M] for G2), flags [rows, M]. Outputs: the prefix stream
-// (X, Y, Z), each [rows, cr, M] with cr = 25 ns, and the lane totals
-// (the last row) in the point layout [25, M] or [25, 2, M].
-template <class F>
-__global__ void __launch_bounds__(kThreads)
-cmsm_row_scan_kernel(const __grid_constant__ FieldQ f, int rows,
-                     const int64_t* x, const int64_t* y, const uint8_t* inf,
-                     int64_t* oX, int64_t* oY, int64_t* oZ, int64_t* tX,
-                     int64_t* tY, int64_t* tZ, int64_t m) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (lane >= m) return;
-  constexpr int kRows = sizeof(typename F::T) / sizeof(uint32_t);  // cr
-  const int64_t plane = static_cast<int64_t>(rows) * m;  // one limb row
-  typename F::T X, Y, Z, px, py, X3, Y3, Z3;
-  set_inf(f, X, Y, Z);
-#pragma unroll 1
-  for (int r = 0; r < rows; ++r) {
-    const int64_t at = static_cast<int64_t>(r) * m;
-    F::load(x + at, plane, lane, px);
-    F::load(y + at, plane, lane, py);
-    gs::curve::cmadd_body<F>(f, X, Y, Z, px, py, inf[at + lane] != 0, X3,
-                             Y3, Z3);
-    store_raw(oX + kRows * at, m, lane, X3);
-    store_raw(oY + kRows * at, m, lane, Y3);
-    store_raw(oZ + kRows * at, m, lane, Z3);
-    F::copy(X3, X);
-    F::copy(Y3, Y);
-    F::copy(Z3, Z);
-  }
-  F::store(tX, m, lane, X);
-  F::store(tY, m, lane, Y);
-  F::store(tZ, m, lane, Z);
 }
 
 // n_dbl complete doublings of P, then P + Q, in one launch: a loop over
@@ -209,6 +141,155 @@ cdbl_n_add_kernel(const __grid_constant__ FieldQ f, int n_dbl,
   F::store(oZ, m, lane, C);
 }
 
+// Complete projective add P + Q (coordinates < 4p in and out), S Fq
+// components a coordinate. The shared memory of a block: 7 slots of 13 S
+// words a thread (the two points, then scratch).
+constexpr int kCaddWords = 7 * kWords;      // times S
+
+template <int S>
+__global__ void __launch_bounds__(kWThreads)
+cadd_kernel(const __grid_constant__ FieldW f, const int64_t* X1,
+            const int64_t* Y1, const int64_t* Z1, const int64_t* X2,
+            const int64_t* Y2, const int64_t* Z2, int64_t* oX, int64_t* oY,
+            int64_t* oZ, int64_t m) {
+  extern __shared__ uint32_t smem[];
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kWThreads + threadIdx.x;
+  if (lane >= m) return;
+  const Column<kWThreads> col{smem + threadIdx.x};
+  constexpr int V = kWords * S;
+  const int64_t* in[6] = {X1, Y1, Z1, X2, Y2, Z2};
+#pragma unroll
+  for (int c = 0; c < 6; ++c)
+    col.st<S>(c * V, gs::w32::gload<S>(in[c], m, lane));
+  gs::w32::cadd_body<S>(f, col);
+  gs::w32::gstore<S>(oX, m, lane, col.ld<S>(0));
+  gs::w32::gstore<S>(oY, m, lane, col.ld<S>(V));
+  gs::w32::gstore<S>(oZ, m, lane, col.ld<S>(2 * V));
+}
+
+// A 4-byte copy from global memory into this thread's shared memory that
+// runs while the thread goes on (cp.async), and the fences of a group of
+// them: commit closes the group, wait returns when every group landed.
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// The row scan's shared memory, in words a thread (times S): the stage
+// (the next row's x then y as 25 S raw words each; once a row's point is
+// packed, x2 at 0 and y2 at 13 S), then the accumulator X, Y, Z and one
+// scratch slot at kScanAcc S (13 S words each).
+constexpr int kScanAcc = 2 * gs::w32::kLimbs;
+constexpr int kScanWords = kScanAcc + 4 * kWords;   // times S
+
+// The running prefix of complete mixed adds down each lane's rows, from
+// (0 : 1 : 0): row r of lane l is the sum of the lane's affine points in
+// rows 0..r (a point with its flag set adds nothing: the lane skips the
+// add). Inputs: x, y in the point layout with the row axis before the
+// lanes ([25, rows, M] for G1, [25, 2, rows, M] for G2), flags [rows, M].
+// Outputs: the prefix stream (X, Y, Z), each [rows, cr, M] with cr = 25 S,
+// an Fq2 coordinate as its c0 limb rows then its c1 rows (the reference's
+// raw layout); and the lane totals in the point layout [25, M] or
+// [25, 2, M].
+template <int S>
+__global__ void __launch_bounds__(kWThreads)
+cmsm_row_scan_kernel(const __grid_constant__ FieldW f, int rows,
+                     const int64_t* x, const int64_t* y, const uint8_t* inf,
+                     int64_t* oX, int64_t* oY, int64_t* oZ, int64_t* tX,
+                     int64_t* tY, int64_t* tZ, int64_t m) {
+  extern __shared__ uint32_t smem[];
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kWThreads + threadIdx.x;
+  if (lane >= m) return;
+  using gs::w32::Val;
+  constexpr int kL = gs::w32::kLimbs;
+  constexpr int V = kWords * S;
+  constexpr int A = kScanAcc * S;                  // accumulator X, Y, Z
+  constexpr int cr = kL * S;                       // rows of one coordinate
+  const Column<kWThreads> col{smem + threadIdx.x};
+  uint32_t* stage = smem + threadIdx.x;
+  const int64_t plane = static_cast<int64_t>(rows) * m;   // one limb row
+  // Row r's (x, y) limbs, low words, into the stage (raw word c cr + u 25
+  // + i for coordinate c, component u, limb i).
+  const auto fetch = [&](int r) {
+    const int64_t at = static_cast<int64_t>(r) * m + lane;
+#pragma unroll
+    for (int u = 0; u < S; ++u) {
+#pragma unroll
+      for (int i = 0; i < kL; ++i) {
+        const int64_t g = (i * S + u) * plane + at;
+        cp_async4(stage + (u * kL + i) * kWThreads, x + g);
+        cp_async4(stage + (cr + u * kL + i) * kWThreads, y + g);
+      }
+    }
+    cp_async_commit();
+  };
+  // The stage's raw coordinate c, packed into slot `to`.
+  const auto pack = [&](int c, int to) {
+    Val<S> v;
+#pragma unroll
+    for (int u = 0; u < S; ++u) {
+#pragma unroll
+      for (int k = 0; k < kWords; ++k) {
+        const int i = c * cr + u * kL + 2 * k;
+        v.c[u].w[k] = stage[i * kWThreads] |
+            (2 * k + 1 < kL ? stage[(i + 1) * kWThreads] << 16 : 0u);
+      }
+    }
+    col.st<S>(to, v);
+  };
+  Val<S> acc[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+#pragma unroll
+    for (int u = 0; u < S; ++u) {
+#pragma unroll
+      for (int k = 0; k < kWords; ++k)
+        acc[c].c[u].w[k] = c == 1 && u == 0 ? f.one[k] : 0u;
+    }
+    col.st<S>(A + c * V, acc[c]);
+  }
+  fetch(0);
+  uint8_t next_inf = inf[lane];
+#pragma unroll 1
+  for (int r = 0; r < rows; ++r) {
+    const bool skip = next_inf != 0;
+    const bool more = r + 1 < rows;
+    if (more) next_inf = inf[static_cast<int64_t>(r + 1) * m + lane];
+    cp_async_wait_all();
+    if (skip) {
+      if (more) fetch(r + 1);
+    } else {
+      pack(0, 0);
+      pack(1, V);
+      gs::w32::cmadd_body<S>(f, col, 0, V, A, [&] {
+        if (more) fetch(r + 1);
+      });
+    }
+    int64_t* out[3] = {oX, oY, oZ};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const Val<S> v = col.ld<S>(A + c * V);
+#pragma unroll
+      for (int u = 0; u < S; ++u)
+        gs::w32::store_limbs_cs(
+            out[c] + (static_cast<int64_t>(r) * cr + u * kL) * m, m, lane,
+            v.c[u]);
+    }
+  }
+  gs::w32::gstore<S>(tX, m, lane, col.ld<S>(A));
+  gs::w32::gstore<S>(tY, m, lane, col.ld<S>(A + V));
+  gs::w32::gstore<S>(tZ, m, lane, col.ld<S>(A + 2 * V));
+}
+
 unsigned grid_of(int64_t m) {
   return static_cast<unsigned>((m + kThreads - 1) / kThreads);
 }
@@ -223,22 +304,46 @@ int launch_cmadd(const FieldQ& f, const int64_t* X1, const int64_t* Y1,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class F>
-int launch_cadd(const FieldQ& f, const int64_t* X1, const int64_t* Y1,
+// Once per kernel: allow its dynamic shared memory above 48 KB, and ask
+// for the largest shared-memory carve-out of the SM's 256 KB, so that four
+// blocks fit.
+template <class K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return e != cudaSuccess
+      ? e
+      : cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+}
+
+unsigned wgrid_of(int64_t m) {
+  return static_cast<unsigned>((m + kWThreads - 1) / kWThreads);
+}
+
+template <int S>
+int launch_cadd(const FieldW& f, const int64_t* X1, const int64_t* Y1,
                 const int64_t* Z1, const int64_t* X2, const int64_t* Y2,
                 const int64_t* Z2, int64_t* oX, int64_t* oY, int64_t* oZ,
                 int64_t m, cudaStream_t stream) {
-  cadd_kernel<F><<<grid_of(m), kThreads, 0, stream>>>(
+  constexpr int bytes = kCaddWords * S * 4 * kWThreads;
+  static const cudaError_t attr = allow_smem(cadd_kernel<S>, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cadd_kernel<S><<<wgrid_of(m), kWThreads, bytes, stream>>>(
       f, X1, Y1, Z1, X2, Y2, Z2, oX, oY, oZ, m);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class F>
-int launch_cmsm_row_scan(const FieldQ& f, int rows, const int64_t* x,
+template <int S>
+int launch_cmsm_row_scan(const FieldW& f, int rows, const int64_t* x,
                          const int64_t* y, const uint8_t* inf, int64_t* oX,
                          int64_t* oY, int64_t* oZ, int64_t* tX, int64_t* tY,
                          int64_t* tZ, int64_t m, cudaStream_t stream) {
-  cmsm_row_scan_kernel<F><<<grid_of(m), kThreads, 0, stream>>>(
+  constexpr int bytes = kScanWords * S * 4 * kWThreads;
+  static const cudaError_t attr = allow_smem(cmsm_row_scan_kernel<S>, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cmsm_row_scan_kernel<S><<<wgrid_of(m), kWThreads, bytes, stream>>>(
       f, rows, x, y, inf, oX, oY, oZ, tX, tY, tZ, m);
   return static_cast<int>(cudaGetLastError());
 }
@@ -291,11 +396,11 @@ int gs_cadd(int nl, int ns, const int64_t* X1, const int64_t* Y1,
             int64_t m, const uint32_t* p, const uint32_t* one, uint32_t n0,
             void* stream) {
   if (nl != N || (ns != 1 && ns != 2)) return -1;
-  const FieldQ f = gs::make_field<N>(p, one, n0);
+  const FieldW f = gs::w32::make_field_w(p, one, n0);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return ns == 1
-      ? launch_cadd<FqA>(f, X1, Y1, Z1, X2, Y2, Z2, oX, oY, oZ, m, s)
-      : launch_cadd<Fq2A>(f, X1, Y1, Z1, X2, Y2, Z2, oX, oY, oZ, m, s);
+      ? launch_cadd<1>(f, X1, Y1, Z1, X2, Y2, Z2, oX, oY, oZ, m, s)
+      : launch_cadd<2>(f, X1, Y1, Z1, X2, Y2, Z2, oX, oY, oZ, m, s);
 }
 
 int gs_cmsm_row_scan(int nl, int ns, int rows, const int64_t* x,
@@ -304,12 +409,12 @@ int gs_cmsm_row_scan(int nl, int ns, int rows, const int64_t* x,
                      int64_t* tZ, int64_t m, const uint32_t* p,
                      const uint32_t* one, uint32_t n0, void* stream) {
   if (nl != N || (ns != 1 && ns != 2)) return -1;
-  const FieldQ f = gs::make_field<N>(p, one, n0);
+  const FieldW f = gs::w32::make_field_w(p, one, n0);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return ns == 1 ? launch_cmsm_row_scan<FqA>(f, rows, x, y, inf, oX, oY, oZ,
-                                             tX, tY, tZ, m, s)
-                 : launch_cmsm_row_scan<Fq2A>(f, rows, x, y, inf, oX, oY,
-                                              oZ, tX, tY, tZ, m, s);
+  return ns == 1 ? launch_cmsm_row_scan<1>(f, rows, x, y, inf, oX, oY, oZ,
+                                           tX, tY, tZ, m, s)
+                 : launch_cmsm_row_scan<2>(f, rows, x, y, inf, oX, oY, oZ,
+                                           tX, tY, tZ, m, s);
 }
 
 }  // extern "C"

@@ -2,9 +2,11 @@
 versions.
 
 The port of four kernels of ``groth_sahai_tpu/ops/pallas_curve.py``,
-written in CUDA C++ for ``sm_90a`` in ``csrc/curve_kernels.cu`` over the
-in-thread group law ``csrc/curve.cuh`` (on ``csrc/tower.cuh`` and
-``csrc/field.cuh``):
+written in CUDA C++ for ``sm_90a`` in ``csrc/curve_kernels.cu`` over an
+in-thread group law: `cmadd` and `cdbl_n_add` on 16-bit limbs
+(``csrc/curve.cuh`` on ``csrc/tower.cuh`` and ``csrc/field.cuh``), `cadd`
+and `cmsm_row_scan` on Fq values of 13 packed 32-bit words at the same R
+(``csrc/curve_w32.cuh`` on ``csrc/field_w32.cuh``):
 
   =============  ===================================  ========================
   wrapper        replaces (TPU kernel)                computes
@@ -59,7 +61,8 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
 LIBRARY = KernelLibrary("gs_curve", "curve_kernels.cu",
-                        ["curve.cuh", "tower.cuh", "field.cuh"], {
+                        ["curve.cuh", "tower.cuh", "field.cuh",
+                         "curve_w32.cuh", "field_w32.cuh"], {
     "gs_cmadd": [_I, _I] + [_P] * 9 + [_I64, _P, _P, _U32, _P],
     "gs_cdbl_n_add": [_I, _I, _I] + [_P] * 9 + [_I64, _P, _P, _U32, _P],
     "gs_cadd": [_I, _I] + [_P] * 9 + [_I64, _P, _P, _U32, _P],

@@ -1,0 +1,320 @@
+"""Design variants of the packed-word curve kernels, timed side by side.
+
+    python3 -m groth_sahai_tpu_torch.utils.curve_variants
+
+Needs one NVIDIA H100 (sm_90a) and nvcc. Builds `csrc/curve_kernels.cu` as
+it stands and in variants made by editing a copy of its sources, one nvcc
+each, all at once, into `groth_sahai_tpu_torch/build/variants/`:
+
+  as built           the committed design: the Montgomery product `mont`
+                     out of line, operands and result by value (in
+                     registers), the running sum split into even and odd
+                     word arrays;
+  one chain per half mont's first form: one running sum, each row's low
+                     halves in one carry chain and its high halves in
+                     another;
+  operands by ref    mont out of line with its operands passed by
+                     reference (through the stack);
+  product inlined    mont inlined at every product of the bodies;
+  first design       both of the last two: one chain per half, inlined.
+
+For each it prints ptxas's report and the SASS of the two kernels (their
+instructions, and the mix of their Montgomery product), then times `gs_cadd` on G2 at 2,757,504 lanes and
+`gs_cmsm_row_scan` on G2 at 85,504 lanes x 128 rows (verify-ppe-334's
+widest launches) by CUDA events, each variant's outputs against the
+committed design's, in the order as built, variants, as built. Prints the
+card's name and power limit. The committed design is held against the
+plain versions by `chip_smoke.py`.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import pathlib
+import re
+import subprocess
+import sys
+
+import torch
+
+from ..ops import cuda_build
+from ..ops import cuda_curve as CC
+from ..ops.cuda_build import host_words
+from ..ops.fp import FQ
+
+OUT = cuda_build.BUILD_DIR / "variants"
+
+ROW_CHAINS = r'''
+__device__ __forceinline__ uint32_t mad_hi_cc(uint32_t a, uint32_t b,
+                                              uint32_t c) {
+  uint32_t r;
+  asm volatile("mad.hi.cc.u32 %0, %1, %2, %3;"
+               : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+
+template <bool first>
+__device__ __forceinline__ void mac_row(uint32_t (&t)[kWords + 1],
+                                        uint32_t ai, const Fw& b) {
+  if (first) {
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) t[j] = ai * b.w[j];
+    t[1] = mad_hi_cc(ai, b.w[0], t[1]);
+#pragma unroll
+    for (int j = 1; j < kWords - 1; ++j)
+      t[j + 1] = madc_hi_cc(ai, b.w[j], t[j + 1]);
+    t[kWords] = madc_hi(ai, b.w[kWords - 1], 0);
+  } else {
+    t[0] = mad_lo_cc(ai, b.w[0], t[0]);
+#pragma unroll
+    for (int j = 1; j < kWords; ++j) t[j] = madc_lo_cc(ai, b.w[j], t[j]);
+    t[kWords] = addc(0, 0);
+    t[1] = mad_hi_cc(ai, b.w[0], t[1]);
+#pragma unroll
+    for (int j = 1; j < kWords - 1; ++j)
+      t[j + 1] = madc_hi_cc(ai, b.w[j], t[j + 1]);
+    t[kWords] = madc_hi(ai, b.w[kWords - 1], t[kWords]);
+  }
+}
+
+__device__ __forceinline__ void mac_p(const FieldW& f,
+                                      uint32_t (&t)[kWords + 1], uint32_t m) {
+  t[0] = mad_lo_cc(m, f.p[0], t[0]);
+#pragma unroll
+  for (int j = 1; j < kPWords; ++j) t[j] = madc_lo_cc(m, f.p[j], t[j]);
+  t[kPWords] = addc_cc(t[kPWords], 0);
+  t[kWords] = addc(t[kWords], 0);
+  t[1] = mad_hi_cc(m, f.p[0], t[1]);
+#pragma unroll
+  for (int j = 1; j < kPWords; ++j)
+    t[j + 1] = madc_hi_cc(m, f.p[j], t[j + 1]);
+  t[kWords] = addc(t[kWords], 0);
+}
+
+__device__ __noinline__ Fw mont(const FieldW& f, Fw a, Fw b) {
+  uint32_t t[kWords + 1];
+  mac_row<true>(t, a.w[0], b);
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    if (i > 0) mac_row<false>(t, a.w[i], b);
+    if (i < kWords - 1) {
+      mac_p(f, t, t[0] * f.n0w);
+#pragma unroll
+      for (int j = 0; j < kWords; ++j) t[j] = t[j + 1];
+      t[kWords] = 0;
+    } else {
+      mac_p(f, t, (t[0] * f.n0) & 0xFFFFu);
+    }
+  }
+  Fw c;
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) c.w[j] = __funnelshift_r(t[j], t[j + 1], 16);
+  return c;
+}
+
+'''
+MONT = "__device__ __noinline__ Fw mont(const FieldW& f, Fw a, Fw b) {"
+
+
+def _one_chain_per_half(src: str) -> str:
+    a = src.index("// Montgomery product a b 2^-400 mod p")
+    b = src.index("}  // namespace w32")
+    return src[:a] + ROW_CHAINS + src[b:]
+
+
+def _inlined(src: str) -> str:
+    return src.replace(MONT, "__device__ __forceinline__ Fw mont(const "
+                             "FieldW& f, Fw a, Fw b) {")
+
+
+VARIANTS = {
+    "as built": lambda s: s,
+    "one chain per half": _one_chain_per_half,
+    "operands by ref": lambda s: s.replace(
+        MONT, "__device__ __noinline__ Fw mont(const FieldW& f, const Fw& a, "
+              "const Fw& b) {"),
+    "product inlined": _inlined,
+    "first design": lambda s: _inlined(_one_chain_per_half(s)),
+}
+
+
+def build(names):
+    """One library per variant, all nvcc processes at once; returns
+    {name: (path, ptxas report)}."""
+    jobs = {}
+    for name in names:
+        d = OUT / name.replace(" ", "_")
+        d.mkdir(parents=True, exist_ok=True)
+        for f in cuda_build.CSRC.iterdir():
+            if f.suffix in (".cu", ".cuh"):
+                text = f.read_text()
+                if f.name == "field_w32.cuh":
+                    text = VARIANTS[name](text)
+                    if name != "as built" and text == f.read_text():
+                        raise RuntimeError(f"variant {name!r} changed nothing")
+                (d / f.name).write_text(text)
+        lib = d / "libgs_curve.so"
+        jobs[name] = (lib, subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib),
+             str(d / "curve_kernels.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for name, (lib, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        out[name] = (lib, log)
+    return out
+
+
+def sass_report(lib) -> list:
+    """The compiled code of the packed-word curve kernels (cadd and
+    cmsm_row_scan, G1 and G2) in one library, from `cuobjdump -sass`:
+    lines giving each kernel's instructions and the instruction mix of
+    its out-of-line Montgomery product (from the CALL's target to the
+    RET)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = pathlib.Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+    blocks, code = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            code = blocks.setdefault(head.group(1), [])
+            continue
+        ins = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)(.*)", line)
+        if ins and code is not None:
+            code.append((int(ins.group(1), 16), ins.group(2), ins.group(3)))
+    out = []
+    for name, code in blocks.items():
+        kern = re.search(r"(cadd|cmsm_row_scan)_kernelILi([12])E", name)
+        if not kern:
+            continue
+        line = f"{kern.group(1)} G{kern.group(2)}: {len(code)} instructions"
+        targets = {int(t.group(1), 16) for _, op, rest in code
+                   if op.startswith("CALL")
+                   and (t := re.search(r"0x([0-9a-f]+)", rest))}
+        if len(targets) == 1:
+            start, body = targets.pop(), []
+            for at, op, _ in code:
+                if at >= start:
+                    body.append(op)
+                    if op.startswith("RET"):
+                        break
+            mix = collections.Counter(body)
+            imad = sum(c for op, c in mix.items() if op.startswith("IMAD"))
+            line += (f"; its Montgomery product {len(body)} instructions, "
+                     f"{imad} IMAD* (" + ", ".join(
+                         f"{op} {c}" for op, c in mix.most_common()
+                         if op.startswith(("IMAD", "IADD3"))) + ")")
+        out.append(line)
+    return out
+
+
+def _limbs(shape, bound_p: int, gen):
+    """Random exact 16-bit limbs (25, *shape) of values < 2^(bits of
+    bound_p p - 1), on the card."""
+    bits = (bound_p * FQ.p).bit_length() - 1
+    x = torch.randint(0, 1 << 16, (FQ.n,) + shape, generator=gen,
+                      dtype=torch.int64, device="cuda")
+    for i in range(FQ.n):
+        x[i] &= (1 << max(0, min(16, bits - 16 * i))) - 1
+    return x
+
+
+def _bind(lib):
+    handle = ctypes.CDLL(str(lib))
+    for fname, argt in CC.LIBRARY.argtypes.items():
+        getattr(handle, fname).argtypes = argt
+        getattr(handle, fname).restype = ctypes.c_int
+    return handle
+
+
+def _events_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("curve_variants: needs a CUDA card", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(card, flush=True)
+    built = build(list(VARIANTS))
+    for name, (lib, log) in built.items():
+        keep = [ln.strip() for ln in log.splitlines()
+                if "stack frame" in ln or "Used" in ln]
+        for line in sass_report(lib):
+            print(f"[{name}] {line}", flush=True)
+        print(f"[{name}] ptxas (every function): " + " | ".join(keep),
+              flush=True)
+    libs = {name: _bind(lib) for name, (lib, _) in built.items()}
+    gen = torch.Generator("cuda").manual_seed(20261018)
+    args = (host_words(FQ, FQ.p), host_words(FQ, FQ.r_mod_p), FQ.n0,
+            torch.cuda.current_stream().cuda_stream)
+
+    def cadd_case():
+        m = 2_757_504
+        ins = [_limbs((2, m), 4, gen).reshape(50, m) for _ in range(6)]
+
+        def cadd(lib):
+            outs = [torch.empty_like(ins[0]) for _ in range(3)]
+            assert lib.gs_cadd(25, 2, *(t.data_ptr() for t in ins + outs),
+                               m, *args) == 0
+            return outs
+        return cadd
+
+    def scan_case():
+        rows, lanes = 128, 85_504
+        pts = [_limbs((2, rows, lanes), 2, gen).reshape(50, rows, lanes)
+               for _ in range(2)]
+        flags = torch.rand((rows, lanes), generator=gen, device="cuda") < 0.25
+
+        def scan(lib):
+            raw = [torch.empty((rows, 50, lanes), dtype=torch.int64,
+                               device="cuda") for _ in range(3)]
+            tot = [torch.empty((50, lanes), dtype=torch.int64,
+                               device="cuda") for _ in range(3)]
+            assert lib.gs_cmsm_row_scan(
+                25, 2, rows,
+                *(t.data_ptr() for t in pts + [flags] + raw + tot), lanes,
+                *args) == 0
+            return tot + raw
+        return scan
+
+    order = list(VARIANTS) + ["as built"]
+    for what, case, reps in (("G2 cadd, 2,757,504 lanes", cadd_case, 5),
+                             ("G2 cmsm_row_scan, 85,504 lanes x 128 rows",
+                              scan_case, 3)):
+        fn = case()
+        want = fn(libs["as built"])
+        for name in order:
+            same = all(torch.equal(a, b) for a, b in zip(fn(libs[name]),
+                                                         want))
+            ms = _events_ms(lambda: fn(libs[name]), reps)
+            print(f"[time] {what}: {name}: {ms:.3f} ms a launch, outputs "
+                  f"{'equal' if same else 'DIFFERENT'}", flush=True)
+            if not same:
+                return 1
+        del fn, want
+        torch.cuda.empty_cache()
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

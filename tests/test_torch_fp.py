@@ -242,6 +242,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import groth_sahai_tpu_torch.models.prover, groth_sahai_tpu_torch.models.verifier\n"
         "import groth_sahai_tpu_torch.models.crs, groth_sahai_tpu_torch.utils.rng\n"
         "import groth_sahai_tpu_torch.ops.msm, groth_sahai_tpu_torch.models.commit_group\n"
+        "import groth_sahai_tpu_torch.utils.curve_variants\n"
         "import chip_smoke\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and (\n"
         "       m == 'groth_sahai_tpu' or m.startswith('groth_sahai_tpu.')\n"

@@ -17,6 +17,7 @@ version; the `gpu` test holds the kernels against those on a card.
 
 import dataclasses
 import functools
+import itertools
 import random
 
 import numpy as np
@@ -366,13 +367,16 @@ def test_msm_kernels_match_plain_on_card():
             assert torch.equal(g, w), kern.__name__
         return got
 
-    for curve in (G1, G2):
+    # cadd and cmsm_row_scan run blocks of 64 threads (csrc/curve_kernels.cu
+    # kWThreads): 77 and 205 lanes end in a ragged block after one and three
+    # full ones
+    for curve, lanes in itertools.product((G1, G2), (77, 205)):
         lead = (2,) if curve.ns == 2 else ()
-        p = tuple(rnd(lead + (77,), 4) for _ in range(3))
-        q = tuple(rnd(lead + (77,), 4) for _ in range(3))
+        p = tuple(rnd(lead + (lanes,), 4) for _ in range(3))
+        q = tuple(rnd(lead + (lanes,), 4) for _ in range(3))
         same(CC.cadd, (p, q, curve))
-        x, y = rnd(lead + (5, 77), 2), rnd(lead + (5, 77), 2)
-        inf = (torch.rand((5, 77), generator=gen) < 0.3).to(dev)
+        x, y = rnd(lead + (5, lanes), 2), rnd(lead + (5, lanes), 2)
+        inf = (torch.rand((5, lanes), generator=gen) < 0.3).to(dev)
         inf[:, 0] = True
         same(CC.cmsm_row_scan, ((x, y, inf), curve))
     R = (rnd((2, 45), 2), rnd((2, 45), 10), rnd((2, 45), 2))
