@@ -9,16 +9,21 @@ Phases (any failure exits non-zero and prints no result line):
                 for sm_90a, one process per source, all at once; prints the
                 build time, the compiler's resource report, the card's
                 name and power limit, and from cuobjdump the instructions of
-                the packed-word curve kernels and their Montgomery product;
+                the packed-word kernels (cadd, cmsm_row_scan, cyc_pow,
+                miller_iter_dbl) and of their Montgomery product, with the
+                last two's frames, spills and registers;
   2. kernels -- each of the sixteen kernels against its plain PyTorch version on
                 the card, bit-exact, at the paths' main shapes: the field
                 kernels at Fq width over the pairing's stacks (16384,
                 442368, 98304 and 8192 lanes) and at Fr width over 8192
                 lanes; fq12_mul over 4096 and 4 lanes, cyc_pow over 4096
-                and 4 for the final exponentiation's three exponents; the
-                Miller iterations and cyc_sqr over 4096, f12_pow_dyn over
-                4096 and 1024; cmadd and cdbl_n_add (n = 4) on G1 over
-                4096, 1336 and 4 lanes and on G2 over 1336 and 4; cadd
+                and 4 for the final exponentiation's three exponents and
+                over the ragged 1, 3 and 1000 lanes; the Miller iterations
+                and cyc_sqr over 4096, miller_iter_dbl also over 1, 3, 1000
+                and 4099 lanes, f12_pow_dyn over 4096 and 1024; cmadd and
+                cdbl_n_add (n = 4) on G1 over 4096, 1336 and 4 lanes and on
+                G2 over 1336 and 4, cdbl_n_add on G2 with n = 8 over 668
+                (verify-ppe-334's window combination); cadd
                 and cmsm_row_scan at the MSM paths' widest calls (G2 at
                 verify-ppe-334's 668 MSMs, G1 at msm-g1-65536's, G2 at
                 prove-ppe-334's) and at ragged widths of 1000 and 4 lanes;
@@ -509,9 +514,15 @@ PATH_LANES = {"mont_mul": 2 * BATCH, "mul_wide": 54 * BATCH,
               "cdbl_n_add": SCALAR_LANES, "miller_dbl_step": STEP_LANES,
               "miller_add_step": STEP_LANES}
 MAIN_FIELD = {"cmadd": "G1", "cdbl_n_add": "G1"}     # others: Fq
+# verify-ppe-334's Gamma d combines its windows with one cdbl_n_add per
+# window over its 2 PPE_M G2 MSMs, n_dbl = the window (ppe_window(PPE_M))
+GAMMA_D_SHIFT = ("G2", 2 * PPE_M, 8)
 ALSO_TIMED = {"cyc_pow": [("Fq", 4)],
               "cmadd": [("G2", COMMIT_LANES), ("G1", COMMIT_LANES)],
-              "cdbl_n_add": [("G2", COMMIT_LANES), ("G1", COMMIT_LANES)]}
+              "cdbl_n_add": [("G2", COMMIT_LANES), ("G1", COMMIT_LANES),
+                             GAMMA_D_SHIFT]}
+# ragged widths of the grouped kernels (lanes not a multiple of a block's)
+RAGGED = (1, 3, 1000)
 
 
 def fq2_inputs(lanes: int, bound_p: int, gen, device, edges):
@@ -703,13 +714,18 @@ def phase2_shapes():
     shapes += [("cyc_pow", FQ, m, e)
                for m in [FUSED] + [m for _, m in ALSO_TIMED["cyc_pow"]]
                for e in (v_abs // 3, v_abs, abs(C.X))]
+    shapes += [("cyc_pow", FQ, m, abs(C.X)) for m in RAGGED]
     shapes += [(name, FQ, FUSED, None) for name in ("cyc_sqr",) + MILLER]
+    shapes += [("miller_iter_dbl", FQ, m, None)
+               for m in RAGGED + (FUSED + 3,)]
     shapes += [("f12_pow_dyn", FQ, m, None) for m in (FUSED, EQUATIONS)]
     from groth_sahai_tpu_torch.ops.curve import G1, G2
     for name in CURVE:
         e = 4 if name == "cdbl_n_add" else None
         shapes += [(name, G1, m, e) for m in (SCALAR_LANES, COMMIT_LANES, 4)]
         shapes += [(name, G2, m, e) for m in (COMMIT_LANES, 4)]
+    assert ppe_window(PPE_M) == GAMMA_D_SHIFT[2]
+    shapes.append(("cdbl_n_add", G2) + GAMMA_D_SHIFT[1:])
     curves = {"G1": G1, "G2": G2}
     for name in MSM_KERNELS:      # the report's shapes, then ragged widths
         shapes += [(name, curves[c], m, e) for c, m, e in msm_shapes(name)]
@@ -1764,12 +1780,12 @@ def time_kernel(name, lanes, args):
 
 
 def report_shapes(name):
-    """[(field or curve name, lanes, rows or None)] at which the report
-    times a kernel, its main shape first."""
+    """[(field or curve name, lanes, rows, n_dbl or None)] at which the
+    report times a kernel, its main shape first."""
     if name in MSM_KERNELS:
         return msm_shapes(name)
     main = [(MAIN_FIELD.get(name, "Fq"), PATH_LANES[name], None)]
-    return main + [(f, m, None) for f, m in ALSO_TIMED.get(name, [])]
+    return main + [(t + (None,))[:3] for t in ALSO_TIMED.get(name, [])]
 
 
 def kernel_report(device, worst, timing, counts, by_path):
@@ -1787,7 +1803,8 @@ def kernel_report(device, worst, timing, counts, by_path):
                 ("field", "lanes", "rows", "ms", "wrapper_ms", "plain_ms",
                  "bound_ms", "bound_by", "ms_by"), (field, lanes, e) + t)))
             print(f"[report] {field} {name:15s} lanes={lanes:7d}"
-                  + (f" rows={e}" if e else "") + f" device {t[0]:.4f} ms "
+                  + (f" {'n' if name == 'cdbl_n_add' else 'rows'}={e}"
+                     if e else "") + f" device {t[0]:.4f} ms "
                   f"per launch by {t[5]} (wrapper {t[1]:.4f} ms per call, "
                   f"plain {t[2]:.4f} ms), bound {t[3]:.5f} ms by {t[4]}",
                   flush=True)
@@ -1961,9 +1978,16 @@ def main() -> int:
                     print("    " + line.strip(), flush=True)
         print(f"[build] {len(libs)} libraries in {phases['build']:.1f} s on "
               f"{card}", flush=True)
-        from groth_sahai_tpu_torch.utils.curve_variants import sass_report
-        for line in sass_report(cuda_curve.LIBRARY.path()):
+        from groth_sahai_tpu_torch.utils.curve_variants import (ptxas_report,
+                                                                sass_report)
+        from groth_sahai_tpu_torch.utils.tower_variants import PTXAS, TOWER_SASS
+        tower = cuda_tower.LIBRARY.path()
+        for line in (sass_report(cuda_curve.LIBRARY.path())
+                     + sass_report(tower, TOWER_SASS)):
             print(f"[sass] {line}", flush=True)
+        for line in ptxas_report(tower.with_suffix(".log").read_text(),
+                                 PTXAS):
+            print(f"[ptxas] {line}", flush=True)
 
         t0 = time.perf_counter()
         worst, timing, checked = check_kernels(device)

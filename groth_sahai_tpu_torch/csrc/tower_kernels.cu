@@ -19,20 +19,47 @@
 // the point update and line of one Miller iteration alone (the iteration
 // kernels' own bodies): entry points that no path of either package calls.
 //
-// Work split: one thread per lane, as in fp_kernels.cu; an Fq12 batch is
-// int64 [25, 12, M] (limb i of coefficient c of lane l at (12 i + c) M + l),
-// an Fq2 batch [25, 2, M], an Fq batch [25, M], Fr scalars [17, M], so the
-// threads of a warp read neighbouring words. Blocks of 32 threads spread the
-// few thousand lanes of these calls over all 132 SMs.
+// Work split: an Fq12 batch is int64 [25, 12, M] (limb i of coefficient c
+// of lane l at (12 i + c) M + l), an Fq2 batch [25, 2, M], an Fq batch
+// [25, M], Fr scalars [17, M]. Six kernels run one thread per lane, as in
+// fp_kernels.cu, in blocks of 32 threads that spread the few thousand lanes
+// of these calls over all 132 SMs.
 //
 // What bounds them on the H100: an Fq12 product is 66 Montgomery products
-// (54 Karatsuba + 12 post-reductions, 82,500 16x16-bit multiply-adds) per
-// lane on 7.2 KB of int64 limbs moved, so every kernel here is bound by the
-// multiplier: a doubling iteration is 176 Montgomery products per lane, an
-// addition iteration 126, a cyclotomic square 30, f12_pow_dyn up to
-// 272 x 132. The design keeps each Fq12 value in thread-local memory
-// (tower.cuh), so at these small batches the real limit is the latency of
-// one thread's long dependent chain.
+// (54 Karatsuba + 12 post-reductions) per lane on 7.2 KB of int64 limbs
+// moved, so every kernel here is bound by the multiplier: a doubling
+// iteration is 176 Montgomery products per lane, an addition iteration
+// 126, a cyclotomic square 30, f12_pow_dyn up to 272 x 132. The one-thread
+// kernels keep each Fq12 value in thread-local memory (tower.cuh, 16-bit
+// limbs, out-of-line products with arrays by reference), so at these small
+// batches the real limit is the latency of one thread's long chain of
+// products, each about 5.5 us.
+//
+// cyc_pow and miller_iter_dbl, the two that lose the most time on the
+// verifier's path, are designed for that limit (tower_w32.cuh):
+//   * an Fq value is 13 packed 32-bit words at the same R = 2^400, and
+//     every product is field_w32.cuh's out-of-line `mont` with its
+//     operands and result in registers, so the limbs at the boundary do
+//     not change;
+//   * a lane is worked by a group of G threads of one warp: the
+//     independent Montgomery products of each level of a formula go
+//     round-robin to the group's threads, levels separated by __syncwarp
+//     of the group, so a lane's chain of products shrinks from 2,316
+//     (cyc_pow, e = |x|) and 176 (a doubling iteration) to the levels'
+//     rounds of products: a cyclotomic square 2 and an Fq12 product 3 at
+//     cyc_pow's G = 32 (146 for e = |x|), a doubling iteration 25 at
+//     G = 8.
+//     G is the fastest of 4, 8, 16 and 32 for each kernel on the paths'
+//     shapes (utils/tower_variants.py): the verifier's cyc_pow runs over 4
+//     lanes, where nothing else is on the card and only a shorter chain
+//     helps; its Miller loop over 4096 lanes, where G = 8 fills the card
+//     in one wave;
+//   * the lane's values (its Fq12 values, R, the leaves and Karatsuba
+//     values of each level) live in the group's shared memory, 13 words
+//     an Fq slot: 108 slots for cyc_pow, 133 for the doubling iteration;
+//     blocks of kGroupLanes lanes (55 KB of shared memory a block for the
+//     doubling iteration: four blocks an SM hold verify's 4096 lanes in
+//     one wave). Inactive lanes of a ragged block leave as whole groups.
 //
 // Plain C interface for ctypes. Each entry point returns cudaGetLastError()
 // after its launch (0 = success), or -1 for a limb count other than 25.
@@ -41,13 +68,58 @@
 #include <cstdint>
 
 #include "field.cuh"
+#include "field_w32.cuh"
 #include "tower.cuh"
+#include "tower_w32.cuh"
 
 namespace {
 
 using namespace gs::tower;
 
 constexpr int kThreads = 32;
+
+using gs::tw::TowerW;
+using gs::w32::Fw;
+
+// The grouped kernels: threads a lane, and lanes a block.
+constexpr int kCycPowGroup = 32;
+constexpr int kDblGroup = 8;
+constexpr int kGroupLanes = 8;
+
+// A lane's words of shared memory: its Fq slots, padded to an odd count so
+// that the lanes of a warp start on different banks.
+__host__ __device__ constexpr int lane_words(int slots) {
+  return slots * gs::w32::kWords | 1;
+}
+
+// cyc_pow's slots: a, two accumulators, the leaves, the Fq6 values.
+constexpr int kCycPowSlots = 12 + 12 + 12 + 54 + 18;
+
+// Coefficient c of lane `lane` of a batch int64 [25, S, M] (limb i at
+// (i S + c) M + lane), packed; a limb's value is its int64's low word.
+__device__ __forceinline__ Fw gload(const int64_t* src, int S, int c,
+                                    int64_t m, int64_t lane) {
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
+  Fw v;
+#pragma unroll
+  for (int k = 0; k < gs::w32::kWords; ++k) {
+    const int i = 2 * k;
+    const int64_t at = (static_cast<int64_t>(i) * S + c) * m + lane;
+    const uint32_t lo = __ldg(s + 2 * at);
+    const uint32_t hi = i + 1 < N ? __ldg(s + 2 * (at + S * m)) : 0u;
+    v.w[k] = lo | hi << 16;
+  }
+  return v;
+}
+
+// v's 16-bit limbs to coefficient c of lane `lane` of dst [25, S, M].
+__device__ __forceinline__ void gstore(int64_t* dst, int S, int c, int64_t m,
+                                       int64_t lane, const Fw& v) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    dst[(static_cast<int64_t>(i) * S + c) * m + lane] =
+        v.w[i / 2] >> (16 * (i % 2)) & 0xFFFFu;
+}
 
 __device__ __forceinline__ void load12(const int64_t* src, int64_t m,
                                        int64_t lane, Fp12& x) {
@@ -85,31 +157,40 @@ fq12_mul_kernel(const __grid_constant__ FieldQ f, const int64_t* a,
 // a^e for a static e < 2^64: 64 iterations from the Fq12 one (R mod p in
 // coefficient 0), each a post-reduced cyclotomic square and, on a set bit
 // of e (MSB first, leading zeros included), a post-reduced product with a
-// -- the sequence of pallas_tower._cyc_pow_kernel. The bit is the same for
-// every thread, so the branch does not diverge.
-__global__ void __launch_bounds__(kThreads)
-cyc_pow_kernel(const __grid_constant__ FieldQ f, const int64_t* a,
+// -- the sequence of pallas_tower._cyc_pow_kernel. A group of G threads
+// works a lane (tower_w32.cuh); the bit is the same for every thread, so
+// the branch does not diverge.
+template <int G>
+__global__ void __launch_bounds__(kGroupLanes * G)
+cyc_pow_kernel(const __grid_constant__ TowerW t, const int64_t* a,
                uint64_t e, int64_t* out, int64_t m) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  extern __shared__ uint32_t smem[];
+  const int rank = threadIdx.x / G;
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kGroupLanes + rank;
   if (lane >= m) return;
-  Fp12 x, acc, t;
-  load12(a, m, lane, x);
-  uint32_t* w = &acc[0][0][0][0];
-#pragma unroll 1
-  for (int i = 0; i < 12 * N; ++i) w[i] = 0;
-  copy(f.one, acc[0][0][0]);
+  const auto grp = gs::tw::group_of<G>(smem + rank * lane_words(kCycPowSlots));
+  constexpr int X = 0, ACC = 12, TMP = 24, LEAF = 36, T6 = 90;
+  gs::tw::level(grp, 12, [&](int c) {
+    grp.st(X + c, gload(a, 12, c, m, lane));
+    Fw z = gs::tw::words_of(t.f.one);
+    if (c != 0) z = Fw{};
+    grp.st(ACC + c, z);
+  });
+  int cur = ACC, tmp = TMP;
 #pragma unroll 1
   for (int i = 63; i >= 0; --i) {
-    cyc_sqr_red(f, acc, t);
+    gs::tw::cyc_sqr(t, grp, cur, tmp, LEAF);
     if ((e >> i) & 1) {
-      f12_mul_red(f, t, x, acc);
+      gs::tw::f12_mul(t, grp, tmp, X, cur, LEAF, T6);
     } else {
-      const uint32_t* s = &t[0][0][0][0];
-#pragma unroll 1
-      for (int j = 0; j < 12 * N; ++j) w[j] = s[j];
+      const int s = cur;
+      cur = tmp;
+      tmp = s;
     }
   }
-  store12(out, m, lane, acc);
+  gs::tw::level(grp, 12, [&](int c) {
+    gstore(out, 12, c, m, lane, grp.ld(cur + c));
+  });
 }
 
 __device__ __forceinline__ void load2(const int64_t* src, int64_t m,
@@ -156,35 +237,38 @@ struct FqConst {
 
 // One Miller doubling iteration (_miller_iter_dbl_kernel): f <- f^2 *
 // line_{R,R}(P), R <- 2R. f < 2p; R = (X, Y, Z) with X, Z < 2p, Y < 10p;
-// P = (px, py) < p. Outputs: f < 2p and R in the same bounds.
-__global__ void __launch_bounds__(kThreads)
-miller_iter_dbl_kernel(const __grid_constant__ FieldQ f,
-                       const __grid_constant__ FqConst tinv,
-                       const int64_t* fin, const int64_t* xin,
-                       const int64_t* yin, const int64_t* zin,
-                       const int64_t* pxin, const int64_t* pyin,
-                       int64_t* fout, int64_t* xout, int64_t* yout,
-                       int64_t* zout, int64_t m) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+// P = (px, py) < p. Outputs: f < 2p and R in the same bounds. A group of G
+// threads works a lane, in the six levels of tower_w32.cuh miller_dbl.
+template <int G>
+__global__ void __launch_bounds__(kGroupLanes * G)
+miller_iter_dbl_kernel(const __grid_constant__ TowerW t, const int64_t* fin,
+                       const int64_t* xin, const int64_t* yin,
+                       const int64_t* zin, const int64_t* pxin,
+                       const int64_t* pyin, int64_t* fout, int64_t* xout,
+                       int64_t* yout, int64_t* zout, int64_t m) {
+  using S = gs::tw::DblSlots;
+  extern __shared__ uint32_t smem[];
+  const int rank = threadIdx.x / G;
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kGroupLanes + rank;
   if (lane >= m) return;
-  Fp12 x, fsq;
-  Fp2 X, Y, Z, X3, Y3, Z3, l0, l1, l2, lb, lc;
-  Fp px, py;
-  load12(fin, m, lane, x);
-  load2(xin, m, lane, X);
-  load2(yin, m, lane, Y);
-  load2(zin, m, lane, Z);
-  load1(pxin, m, lane, px);
-  load1(pyin, m, lane, py);
-  f12_sqr_red(f, x, fsq);
-  dbl_step_body(f, tinv.v, X, Y, Z, X3, Y3, Z3, l0, l1, l2);
-  f2_mul_fq(f, l1, px, lb);                    // < 2p
-  f2_mul_fq(f, l2, py, lc);                    // < 2p
-  sparse_line_mul(f, fsq, l0, lb, lc, x);
-  store12(fout, m, lane, x);
-  store2(xout, m, lane, X3);
-  store2(yout, m, lane, Y3);
-  store2(zout, m, lane, Z3);
+  const auto grp = gs::tw::group_of<G>(smem + rank * lane_words(S::kSlots));
+  gs::tw::level(grp, 20, [&](int k) {      // f, X, Y, Z, px, py
+    if (k < 12) {
+      grp.st(S::kF + k, gload(fin, 12, k, m, lane));
+    } else if (k < 18) {
+      const int64_t* c = k < 14 ? xin : k < 16 ? yin : zin;
+      grp.st(S::kPt + k - 12, gload(c, 2, k % 2, m, lane));
+    } else {
+      grp.st(S::kPt + k - 12, gload(k == 18 ? pxin : pyin, 1, 0, m, lane));
+    }
+  });
+  gs::tw::miller_dbl(t, grp, [&](gs::tw::DblOut kind, int c, const Fw& v) {
+    if (kind == gs::tw::kOutF)
+      gstore(fout, 12, c, m, lane, v);
+    else
+      gstore(kind == gs::tw::kOutX ? xout
+             : kind == gs::tw::kOutY ? yout : zout, 2, c, m, lane, v);
+  });
 }
 
 // One Miller addition iteration (_miller_iter_add_kernel): f <- f *
@@ -311,6 +395,24 @@ unsigned grid_of(int64_t m) {
   return static_cast<unsigned>((m + kThreads - 1) / kThreads);
 }
 
+unsigned group_grid_of(int64_t m) {
+  return static_cast<unsigned>((m + kGroupLanes - 1) / kGroupLanes);
+}
+
+// Once per kernel: allow its dynamic shared memory above 48 KB, and ask
+// for the largest shared-memory carve-out of the SM, so that four blocks
+// fit.
+template <class K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return e != cudaSuccess
+      ? e
+      : cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+}
+
 }  // namespace
 
 extern "C" {
@@ -329,9 +431,13 @@ int gs_cyc_pow(int nl, const int64_t* a, uint64_t e, int64_t* out, int64_t m,
                const uint32_t* p, const uint32_t* one, uint32_t n0,
                void* stream) {
   if (nl != N) return -1;
-  cyc_pow_kernel<<<grid_of(m), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      gs::make_field<N>(p, one, n0), a, e, out, m);
+  constexpr int G = kCycPowGroup;
+  constexpr int bytes = kGroupLanes * lane_words(kCycPowSlots) * 4;
+  static const cudaError_t attr = allow_smem(cyc_pow_kernel<G>, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cyc_pow_kernel<G><<<group_grid_of(m), kGroupLanes * G, bytes,
+                      static_cast<cudaStream_t>(stream)>>>(
+      gs::tw::make_tower_w(p, one, n0, nullptr), a, e, out, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -352,12 +458,16 @@ int gs_miller_iter_dbl(int nl, const int64_t* fin, const int64_t* xin,
                        int64_t m, const uint32_t* p, const uint32_t* one,
                        const uint32_t* tinv, uint32_t n0, void* stream) {
   if (nl != N) return -1;
-  FqConst t;
-  for (int j = 0; j < N; ++j) t.v[j] = tinv[j];
-  miller_iter_dbl_kernel<<<grid_of(m), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      gs::make_field<N>(p, one, n0), t, fin, xin, yin, zin, px, py, fout,
-      xout, yout, zout, m);
+  constexpr int G = kDblGroup;
+  constexpr int bytes =
+      kGroupLanes * lane_words(gs::tw::DblSlots::kSlots) * 4;
+  static const cudaError_t attr =
+      allow_smem(miller_iter_dbl_kernel<G>, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  miller_iter_dbl_kernel<G><<<group_grid_of(m), kGroupLanes * G, bytes,
+                              static_cast<cudaStream_t>(stream)>>>(
+      gs::tw::make_tower_w(p, one, n0, tinv), fin, xin, yin, zin, px, py,
+      fout, xout, yout, zout, m);
   return static_cast<int>(cudaGetLastError());
 }
 

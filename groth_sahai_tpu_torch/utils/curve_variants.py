@@ -139,41 +139,57 @@ VARIANTS = {
 }
 
 
-def build(names):
-    """One library per variant, all nvcc processes at once; returns
+def build_variants(source: str, edits: dict, out: pathlib.Path,
+                   sources=None) -> dict:
+    """One library of `source` per variant, all nvcc processes at once:
+    edits maps a variant's name to {file name: transform of its text}
+    (an empty dict builds the sources as they stand); sources maps a
+    variant's name to another directory of sources than csrc/. Returns
     {name: (path, ptxas report)}."""
     jobs = {}
-    for name in names:
-        d = OUT / name.replace(" ", "_")
+    for name, change in edits.items():
+        d = out / name.replace(" ", "_").replace("=", "")
         d.mkdir(parents=True, exist_ok=True)
-        for f in cuda_build.CSRC.iterdir():
+        for f in (sources or {}).get(name, cuda_build.CSRC).iterdir():
             if f.suffix in (".cu", ".cuh"):
                 text = f.read_text()
-                if f.name == "field_w32.cuh":
-                    text = VARIANTS[name](text)
-                    if name != "as built" and text == f.read_text():
+                if f.name in change:
+                    text = change[f.name](text)
+                    if text == f.read_text():
                         raise RuntimeError(f"variant {name!r} changed nothing")
                 (d / f.name).write_text(text)
-        lib = d / "libgs_curve.so"
+        lib = d / f"lib{pathlib.Path(source).stem}.so"
         jobs[name] = (lib, subprocess.Popen(
             [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib),
-             str(d / "curve_kernels.cu")],
+             str(d / source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    out = {}
+    built = {}
     for name, (lib, proc) in jobs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        out[name] = (lib, log)
-    return out
+        built[name] = (lib, log)
+    return built
 
 
-def sass_report(lib) -> list:
-    """The compiled code of the packed-word curve kernels (cadd and
-    cmsm_row_scan, G1 and G2) in one library, from `cuobjdump -sass`:
-    lines giving each kernel's instructions and the instruction mix of
-    its out-of-line Montgomery product (from the CALL's target to the
-    RET)."""
+def build(names):
+    """The curve library in each variant of `names`."""
+    return build_variants(
+        "curve_kernels.cu",
+        {name: {} if name == "as built" else {"field_w32.cuh": VARIANTS[name]}
+         for name in names}, OUT)
+
+
+CURVE_SASS = r"(cadd|cmsm_row_scan)_kernelILi([12])E", "{} G{}"
+
+
+def sass_report(lib, kernels=CURVE_SASS) -> list:
+    """The compiled code of the packed-word kernels in one library (by
+    default the curve kernels cadd and cmsm_row_scan, G1 and G2; `kernels`
+    is a pattern of their mangled names and a label made from its two
+    groups), from `cuobjdump -sass`: lines giving each kernel's
+    instructions and the instruction mix of its out-of-line Montgomery
+    product (from the CALL's target to the RET)."""
     from torch.utils.cpp_extension import CUDA_HOME
     tool = pathlib.Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
@@ -190,10 +206,11 @@ def sass_report(lib) -> list:
             code.append((int(ins.group(1), 16), ins.group(2), ins.group(3)))
     out = []
     for name, code in blocks.items():
-        kern = re.search(r"(cadd|cmsm_row_scan)_kernelILi([12])E", name)
+        kern = re.search(kernels[0], name)
         if not kern:
             continue
-        line = f"{kern.group(1)} G{kern.group(2)}: {len(code)} instructions"
+        line = (kernels[1].format(*kern.groups())
+                + f": {len(code)} instructions")
         targets = {int(t.group(1), 16) for _, op, rest in code
                    if op.startswith("CALL")
                    and (t := re.search(r"0x([0-9a-f]+)", rest))}
@@ -214,6 +231,37 @@ def sass_report(lib) -> list:
     return out
 
 
+def ptxas_report(log: str, pattern: str) -> list:
+    """From nvcc's `-Xptxas -v` report, one line per function whose
+    mangled name matches `pattern`: its stack frame and spills, and for a
+    kernel its registers."""
+    funcs, cur = [], None
+    for line in log.splitlines():
+        head = re.search(r"Function properties for (\S+)", line)
+        if head:
+            cur = {"name": head.group(1)}
+            funcs.append(cur)
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if cur is not None and frame:
+            cur["frame"] = frame.groups()
+        elif cur is not None and regs:
+            cur["regs"] = regs.group(1)
+    out = []
+    for f in funcs:
+        hit = re.search(pattern, f["name"])
+        if hit and "frame" in f:
+            arg = re.match(r"ILi(\d+)E", f["name"][hit.end():])
+            line = (hit.group(0) + (f"<{arg.group(1)}>" if arg else "")
+                    + f": {f['frame'][0]} B frame, spills "
+                    f"{f['frame'][1]}/{f['frame'][2]} B")
+            out.append(line + (f", {f['regs']} registers"
+                               if "regs" in f else ""))
+    return out
+
+
 def _limbs(shape, bound_p: int, gen):
     """Random exact 16-bit limbs (25, *shape) of values < 2^(bits of
     bound_p p - 1), on the card."""
@@ -225,9 +273,10 @@ def _limbs(shape, bound_p: int, gen):
     return x
 
 
-def _bind(lib):
+def _bind(lib, library=CC.LIBRARY):
+    """A built variant of `library` (a KernelLibrary), loaded."""
     handle = ctypes.CDLL(str(lib))
-    for fname, argt in CC.LIBRARY.argtypes.items():
+    for fname, argt in library.argtypes.items():
         getattr(handle, fname).argtypes = argt
         getattr(handle, fname).restype = ctypes.c_int
     return handle

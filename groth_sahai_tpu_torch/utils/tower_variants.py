@@ -1,0 +1,150 @@
+"""Group sizes of the grouped tower kernels, timed side by side.
+
+    python3 -m groth_sahai_tpu_torch.utils.tower_variants [--against DIR]
+
+Needs one NVIDIA H100 (sm_90a) and nvcc. Builds `csrc/tower_kernels.cu` as
+it stands and with the threads a lane of cyc_pow and miller_iter_dbl
+(`kCycPowGroup`, `kDblGroup`) set to each of 4, 8, 16 and 32 in copies of
+its sources, one nvcc each, all at once, into
+`groth_sahai_tpu_torch/build/tower_variants/`. For each it prints ptxas's
+report of the two kernels and of `mont` (frame, spills, registers) and
+their SASS (instructions, and the mix of their Montgomery product), then
+times, by CUDA events, cyc_pow over 4 lanes
+(the verifier's final exponentiation, e = |x|) and over 4096, and
+miller_iter_dbl over 4096 lanes (the verifier's Miller loop), in the order
+as built, variants, as built, each variant's outputs against the committed
+build's; the committed build's against the plain versions. With
+`--against DIR`, the tower library built from the kernel sources in DIR
+(another checkout's `groth_sahai_tpu_torch/csrc`, with the same C entry
+points) is timed as one more variant. Inputs are seeded, at the kernels'
+input bounds. Prints the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import pathlib
+import re
+import subprocess
+import sys
+
+import torch
+
+from ..ops import bls12_381 as C
+from ..ops import cuda_build
+from ..ops import cuda_tower as CT
+from ..ops.cuda_build import check, host_words
+from ..ops.fp import FQ
+from .curve_variants import _bind, _events_ms, _limbs, build_variants, \
+    ptxas_report, sass_report
+
+OUT = cuda_build.BUILD_DIR / "tower_variants"
+GROUPS = (4, 8, 16, 32)
+TOWER_SASS = (r"(cyc_pow|miller_iter_dbl)_kernelILi(\d+)E",
+              "{} at {} threads a lane")
+# ptxas lines: the two kernels, and the Montgomery product they call
+PTXAS = r"cyc_pow_kernel|miller_iter_dbl_kernel|mont"
+_CONST = re.compile(r"(constexpr int (kCycPowGroup|kDblGroup) = )(\d+);")
+
+
+def built_groups() -> dict:
+    """The committed group sizes: {"kCycPowGroup": G, "kDblGroup": G}."""
+    text = (cuda_build.CSRC / "tower_kernels.cu").read_text()
+    return {m.group(2): int(m.group(3)) for m in _CONST.finditer(text)}
+
+
+def variants() -> dict:
+    """name -> {file: transform}: as built, then every G of GROUPS for both
+    kernels that is not the committed pair."""
+    out = {"as built": {}}
+    for g in GROUPS:
+        if set(built_groups().values()) != {g}:
+            out[f"G={g}"] = {"tower_kernels.cu": lambda s, g=g: _CONST.sub(
+                lambda m: f"{m.group(1)}{g};", s)}
+    return out
+
+
+def cases(gen):
+    """(name, lanes, fn(lib) -> outputs, plain outputs) of the timed calls."""
+    args = (host_words(FQ, FQ.p), host_words(FQ, FQ.r_mod_p))
+    stream = torch.cuda.current_stream().cuda_stream
+    out = []
+    for lanes in (4, 4096):
+        a = _limbs((12, lanes), 2, gen)
+
+        def pow_call(lib, a=a, lanes=lanes):
+            o = torch.empty_like(a)
+            check(lib.gs_cyc_pow(FQ.n, a.data_ptr(), abs(C.X), o.data_ptr(),
+                                 lanes, *args, FQ.n0, stream), "cyc_pow", FQ.n)
+            return [o]
+        out.append((f"cyc_pow, {lanes} lanes", lanes, pow_call,
+                    lambda a=a: [CT.cyc_pow_plain(a, abs(C.X))]))
+    lanes = 4096
+    f = _limbs((12, lanes), 2, gen)
+    R = [_limbs((2, lanes), b, gen) for b in (2, 10, 2)]
+    P = [_limbs((lanes,), 1, gen) for _ in range(2)]
+
+    def dbl_call(lib):
+        fo = torch.empty_like(f)
+        rs = [torch.empty_like(R[0]) for _ in range(3)]
+        check(lib.gs_miller_iter_dbl(
+            FQ.n, *(x.data_ptr() for x in [f] + R + P + [fo] + rs), lanes,
+            *args, host_words(FQ, CT.TWO_INV_MONT), FQ.n0, stream),
+            "miller_iter_dbl", FQ.n)
+        return [fo] + rs
+
+    def dbl_plain():
+        fo, rs = CT.miller_iter_dbl_plain(f, tuple(R), *P)
+        return [fo] + list(rs)
+    out.append((f"miller_iter_dbl, {lanes} lanes", lanes, dbl_call,
+                dbl_plain))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--against", type=pathlib.Path, default=None,
+                    help="another checkout's csrc/ to time beside these")
+    opts = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("tower_variants: needs a CUDA card", file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(card, flush=True)
+    print(f"as built: {built_groups()}", flush=True)
+    edits, sources = variants(), {}
+    if opts.against:
+        edits["against"] = {}
+        sources["against"] = opts.against.resolve()
+    built = build_variants("tower_kernels.cu", edits, OUT, sources)
+    for name, (lib, log) in built.items():
+        for line in sass_report(lib, TOWER_SASS) + ptxas_report(log, PTXAS):
+            print(f"[{name}] {line}", flush=True)
+    libs = {name: _bind(lib, CT.LIBRARY) for name, (lib, _) in built.items()}
+    gen = torch.Generator("cuda").manual_seed(20261018)
+    order = list(libs) + ["as built"]
+    for what, lanes, fn, plain in cases(gen):
+        want = fn(libs["as built"])
+        exact = all(torch.equal(a, b) for a, b in zip(want, plain()))
+        print(f"[plain] {what}: as built "
+              f"{'equals' if exact else 'DIFFERS FROM'} the plain version",
+              flush=True)
+        if not exact:
+            return 1
+        reps = 5 if "cyc_pow" in what else 20
+        for name in order:
+            same = all(torch.equal(a, b) for a, b in zip(fn(libs[name]),
+                                                         want))
+            ms = _events_ms(lambda: fn(libs[name]), reps)
+            print(f"[time] {what}: {name}: {ms:.4f} ms a launch, outputs "
+                  f"{'equal' if same else 'DIFFERENT'}", flush=True)
+            if not same:
+                return 1
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

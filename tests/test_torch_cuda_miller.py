@@ -230,12 +230,15 @@ def card_inputs(lanes):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [70, 1003])
 @pytest.mark.parametrize("name", ["cyc_sqr", "miller_iter_dbl",
                                   "miller_iter_add", "f12_pow_dyn"])
-def test_miller_kernels_match_plain_on_card(name):
+def test_miller_kernels_match_plain_on_card(name, lanes):
+    """Each kernel against its plain version; 1003 lanes end in a ragged
+    block of miller_iter_dbl's lane groups."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernels are CUDA C++ for sm_90a")
-    f, R, Q, P, s = card_inputs(70)
+    f, R, Q, P, s = card_inputs(lanes)
     kern = getattr(CT, name)
     args = {"cyc_sqr": (f,), "miller_iter_dbl": (f, R, *P),
             "miller_iter_add": (f, R, Q, *P), "f12_pow_dyn": (f, s)}[name]

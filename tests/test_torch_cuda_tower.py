@@ -113,16 +113,22 @@ def test_tower_wrappers_never_fall_back():
 
 
 @pytest.mark.gpu
-def test_tower_kernels_match_plain_on_card():
+@pytest.mark.parametrize("lanes", [70, 3])
+def test_tower_kernels_match_plain_on_card(lanes):
+    """fq12_mul and cyc_pow against their plain versions; 3 lanes leave
+    most of cyc_pow's block of lane groups idle."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernels are CUDA C++ for sm_90a")
     top = 32 * C.P - 1
-    a = limbs_from_numpy(with_edges(rand_coeffs(34, 12, 70, bound=32 * C.P),
+    a = limbs_from_numpy(with_edges(rand_coeffs(34, 12, lanes,
+                                                bound=32 * C.P),
                                     [top, 0]), device="cuda")
-    b = limbs_from_numpy(with_edges(rand_coeffs(35, 12, 70, bound=32 * C.P),
+    b = limbs_from_numpy(with_edges(rand_coeffs(35, 12, lanes,
+                                                bound=32 * C.P),
                                     [top, top]), device="cuda")
-    c = limbs_from_numpy(rand_coeffs(36, 12, 70, bound=2 * C.P),
-                         device="cuda")
+    c = limbs_from_numpy(with_edges(rand_coeffs(36, 12, lanes,
+                                                bound=2 * C.P),
+                                    [2 * C.P - 1]), device="cuda")
     for kern, args in ((CT.fq12_mul, (a, b)), (CT.cyc_pow, (c, abs(C.X)))):
         before = kern.launches
         got = kern(*args)

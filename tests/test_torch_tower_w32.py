@@ -1,0 +1,553 @@
+"""The grouped packed-word tower of the kernels cyc_pow and miller_iter_dbl.
+
+`csrc/tower_w32.cuh` cuts an Fq12 product, a cyclotomic square and a Miller
+doubling iteration into levels of independent tasks that the G threads of
+a lane's group take round-robin, each task reading Fq slots of the lane's
+shared memory that earlier levels wrote and writing its own. The kernels
+run only on a card, so this file holds a pure-Python twin of that schedule
+-- the same levels, tasks, slots and k p offsets, each Montgomery product
+through the twin of the packed-word product in test_torch_words.py -- and
+holds it limb for limb against the plain versions `cuda_tower.cyc_pow_plain`
+and `miller_iter_dbl_plain` (themselves held against the JAX package in
+test_torch_cuda_tower.py and test_torch_cuda_miller.py), on seeded inputs
+and on the edges chip_smoke.py uses. The twin asserts the bound audit at
+every step (Montgomery operands < 2^400 with value(a) value(b) <= 2^16 p^2,
+sums < 2^416, every k p subtraction non-negative), that no task reads a
+slot before a level wrote it, and that no two tasks of a level touch a slot
+that one of them writes, so the threads of a group may take the tasks in
+any order; and it counts the rounds of products the header states.
+"""
+
+from __future__ import annotations
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from groth_sahai_tpu_torch.ops import bls12_381 as C
+from groth_sahai_tpu_torch.ops import cuda_tower as CT
+from groth_sahai_tpu_torch.ops.fp import FQ
+from groth_sahai_tpu_torch.utils.convert import limbs_from_numpy
+
+from .test_torch_cuda_tower import with_edges
+from .test_torch_tower import one_thread, rand_coeffs  # noqa: F401
+from .test_torch_words import MASK, NPW, NW, mont_w32, n0w_newton
+
+P = C.P
+ONE = FQ.r_mod_p
+R_INV = pow(1 << 400, -1, P)
+KP = {k: k * P for k in (2, 4, 6, 8, 12, 18, 24, 42, 144)}   # tower_w32.cuh
+PW = [(P >> (32 * k)) & MASK for k in range(NPW)]
+N0W = n0w_newton(PW[0])
+
+
+def words(v: int):
+    return [(v >> (32 * k)) & MASK for k in range(NW)]
+
+
+def add(a, b):
+    assert a + b < 1 << 400                # < 2^416 for the packed words,
+    return a + b                           # < 2^400 for the 16-bit limbs
+
+
+def subk(a, b, k):
+    """a - b + k p, formed as (a + k p) - b; bound(b) <= k p."""
+    assert b <= KP[k] and a + KP[k] < 1 << 400
+    return add(a, KP[k]) - b
+
+
+def negk(a, k):
+    assert a <= KP[k]
+    return KP[k] - a
+
+
+def dbl(a):
+    return add(a, a)
+
+
+def triple(a):
+    return add(dbl(a), a)
+
+
+def mul12(a):
+    assert 12 * a < 1 << 400
+    return 12 * a
+
+
+class Lane:
+    """One lane's Fq slots and the group's levels over them: tasks run one
+    after another, each read and write recorded by task, and a level's
+    hazards checked when it ends. Counts the Montgomery products of each
+    task, for the rounds."""
+
+    def __init__(self, slots: int):
+        self.s = [None] * slots
+        self.rounds = {g: 0 for g in (4, 8, 16, 32)}
+        self.products = 0
+        self._level = None
+
+    def ld(self, slot):
+        assert self.s[slot] is not None, f"slot {slot} read before written"
+        if self._level is not None:
+            self._level[0].setdefault(slot, set()).add(self._task)
+        return self.s[slot]
+
+    def st(self, slot, v):
+        assert 0 <= v < 1 << 400
+        if self._level is not None:
+            self._level[1].setdefault(slot, set()).add(self._task)
+        self.s[slot] = v
+
+    def mont(self, a, b):
+        assert a < 1 << 400 and b < 1 << 400
+        assert a * b <= (1 << 16) * P * P
+        self.products += 1
+        self._with_product.add(self._task)
+        w = mont_w32(words(a), words(b), PW, N0W, FQ.n0)
+        c = sum(x << (32 * k) for k, x in enumerate(w))
+        assert c < 2 * P and c % P == a * b * R_INV % P
+        return c
+
+    def level(self, n: int, task):
+        reads, writes = {}, {}
+        self._level, self._with_product = (reads, writes), set()
+        for k in range(n):
+            self._task = k
+            task(k)
+        self._level = None
+        for slot, who in writes.items():
+            touch = who | reads.get(slot, set())
+            assert len(touch) == 1, f"slot {slot} shared by tasks {touch}"
+        for g in self.rounds:
+            self.rounds[g] += len({k // g for k in self._with_product})
+
+    def post_red(self, a):
+        return self.mont(a, ONE)
+
+
+def kara_ops(q, a, b):
+    """Karatsuba leaf q of a b from a(u), b(u)."""
+    if q < 2:
+        return a(q), b(q)
+    return add(a(0), a(1)), add(b(0), b(1))
+
+
+def kara(ln, L, u):
+    t0, t1 = ln.ld(L), ln.ld(L + 1)
+    if u == 0:
+        return subk(t0, t1, 2)
+    return subk(subk(ln.ld(L + 2), t0, 2), t1, 2)
+
+
+# ------------------------------------------------------- the Fq12 product
+
+def f12_leaf_mask(k):
+    F, Pn, Q = k // 18, k // 3 % 6, k % 3
+    kj = 5 << 15 | 3 << 12 | 6 << 9 | 4 << 6 | 2 << 3 | 1
+    jm = kj >> (3 * Pn) & 7
+    ju = 0
+    for j in range(3):
+        if jm >> j & 1:
+            ju |= (Q + 1) << (2 * j)
+    return sum(ju << (6 * i) for i in range(2) if (F + 1) >> i & 1)
+
+
+def slot_sum(ln, base, m):
+    cs = [c for c in range(12) if m >> c & 1]
+    s = ln.ld(base + cs[0])
+    for c in cs[1:]:
+        s = add(s, ln.ld(base + c))
+    return s
+
+
+def f12_leaf_ops(ln, A, B, k):
+    m = f12_leaf_mask(k)
+    x = slot_sum(ln, A, m)
+    return x, x if A == B else slot_sum(ln, B, m)
+
+
+def f6_comb(ln, LEAF, OUT, k):
+    F, j = k // 3, k % 3
+
+    def Pr(n, u):
+        return kara(ln, LEAF + 18 * F + 3 * n, u)
+    if j == 0:
+        s = [subk(subk(Pr(3, u), Pr(1, u), 6), Pr(2, u), 6) for u in range(2)]
+        c = [add(Pr(0, 0), subk(s[0], s[1], 18)), add(Pr(0, 1), add(s[0], s[1]))]
+    elif j == 1:
+        t20, t21 = Pr(2, 0), Pr(2, 1)
+        xi = [subk(t20, t21, 6), add(t20, t21)]
+        c = [subk(subk(add(Pr(4, u), xi[u]), Pr(0, u), 6), Pr(1, u), 6)
+             for u in range(2)]
+    else:
+        c = [subk(subk(add(Pr(5, u), Pr(1, u)), Pr(0, u), 6), Pr(2, u), 6)
+             for u in range(2)]
+    ln.st(OUT + 6 * F + 2 * j, c[0])
+    ln.st(OUT + 6 * F + 2 * j + 1, c[1])
+
+
+def f12_comb(ln, T6, k, kx, ks):
+    i, j, u = k // 6, k // 2 % 3, k % 2
+
+    def T(F, jj, uu):
+        return ln.ld(T6 + 6 * F + 2 * jj + uu)
+    if i == 1:
+        return subk(subk(T(2, j, u), T(0, j, u), ks), T(1, j, u), ks)
+    if j > 0:
+        return add(T(0, j, u), T(1, j - 1, u))
+    w = subk(T(1, 2, 0), T(1, 2, 1), kx) if u == 0 else add(T(1, 2, 0),
+                                                            T(1, 2, 1))
+    return add(T(0, 0, u), w)
+
+
+def f12_mul(ln, A, B, OUT, LEAF, T6):
+    ln.level(54, lambda k: ln.st(LEAF + k,
+                                 ln.mont(*f12_leaf_ops(ln, A, B, k))))
+    ln.level(9, lambda k: f6_comb(ln, LEAF, T6, k))
+    ln.level(12, lambda k: ln.st(OUT + k, ln.post_red(
+        f12_comb(ln, T6, k, 24, 42))))
+
+
+# ---------------------------------------------------- the cyclotomic square
+
+def cyc_leaf_ops(ln, A, k):
+    q = k // 2
+    r = q % 3
+    x0, x1 = A + [0, 6, 2][r], A + [8, 4, 10][r]
+    if q < 6:
+        c = x0 if q < 3 else x1
+        w0, w1 = ln.ld(c), ln.ld(c + 1)
+    else:
+        w0 = add(ln.ld(x0), ln.ld(x1))
+        w1 = add(ln.ld(x0 + 1), ln.ld(x1 + 1))
+    return (add(w0, w1), subk(w0, w1, 4)) if k % 2 == 0 else (w0, w1)
+
+
+def cyc_comb(ln, A, SQ, k):
+    i, j, u = k // 6, k // 2 % 3, k % 2
+
+    def S(q, h):
+        return ln.ld(SQ + 2 * q + h)
+
+    def tb(r, uu):
+        o = 2 if uu == 0 else 4
+        return subk(subk(S(6 + r, uu), S(r, uu), o), S(3 + r, uu), o)
+    if i == 0:
+        s1 = (subk(S(3 + j, 0), S(3 + j, 1), 4) if u == 0
+              else add(S(3 + j, 0), S(3 + j, 1)))
+        ta = add(S(j, u), s1)
+        return add(dbl(subk(ta, ln.ld(A + 2 * j + u), 2)), ta)
+    if j == 0:
+        b0, b1 = tb(2, 0), tb(2, 1)
+        b = subk(b0, b1, 12) if u == 0 else add(b0, b1)
+    else:
+        b = tb(j - 1, u)
+    return add(dbl(add(b, ln.ld(A + 6 + 2 * j + u))), b)
+
+
+def cyc_sqr(ln, A, OUT, SQ):
+    def leaf(k):
+        r = ln.mont(*cyc_leaf_ops(ln, A, k))
+        ln.st(SQ + k, r if k % 2 == 0 else dbl(r))
+    ln.level(18, leaf)
+    ln.level(12, lambda k: ln.st(OUT + k, ln.post_red(cyc_comb(ln, A, SQ,
+                                                               k))))
+
+
+def cyc_pow_twin(a, e: int):
+    """cyc_pow_kernel for one lane: a is 12 ints; returns 12 ints and the
+    lane (its counts)."""
+    X, ACC, TMP, LEAF, T6 = 0, 12, 24, 36, 90
+    ln = Lane(108)
+    ln.level(12, lambda c: (ln.st(X + c, a[c]),
+                            ln.st(ACC + c, ONE if c == 0 else 0)))
+    cur, tmp = ACC, TMP
+    for i in range(CT.CYC_POW_NBITS - 1, -1, -1):
+        cyc_sqr(ln, cur, tmp, LEAF)
+        if (e >> i) & 1:
+            f12_mul(ln, tmp, X, cur, LEAF, T6)
+        else:
+            cur, tmp = tmp, cur
+    return [ln.ld(cur + c) for c in range(12)], ln
+
+
+# ------------------------------------------------- the doubling iteration
+
+SF, SLEAF, ST6, SPT, SD2, SD3, SSLOTS = 0, 12, 81, 99, 107, 117, 133
+
+
+def dbl_e(ln, u):
+    c0, c1 = ln.ld(SD2 + 4), ln.ld(SD2 + 5)
+    return mul12(subk(c0, c1, 2) if u == 0 else add(c0, c1))
+
+
+def dbl_h(ln, u):
+    return subk(ln.ld(SD2 + 8 + u), add(ln.ld(SD2 + 2 + u),
+                                         ln.ld(SD2 + 4 + u)), 4)
+
+
+def dbl_leaf_ops(ln, d):
+    n = d // 3
+    oa, ob = [0, 1, 2, 0, 3][n], [1, 1, 2, 0, 3][n]
+
+    def comp(o, u):
+        if o < 3:
+            return ln.ld(SPT + 2 * o + u)
+        return add(ln.ld(SPT + 2 + u), ln.ld(SPT + 4 + u))
+    return kara_ops(d % 3, lambda u: comp(oa, u), lambda u: comp(ob, u))
+
+
+def dbl_mid_ops(ln, d, tinv):
+    """Operands of level-C task d, or None once d (l0) stored itself."""
+    u = d % 2
+    if d < 2:
+        return ln.ld(SD2 + u), tinv
+    if d < 4:
+        return add(ln.ld(SD2 + 2 + u), triple(dbl_e(ln, u))), tinv
+    if d < 7:
+        e = lambda uu: dbl_e(ln, uu)
+        return kara_ops(d - 4, e, e)
+    if d < 10:
+        return kara_ops(d - 7, lambda uu: ln.ld(SD2 + 2 + uu),
+                        lambda uu: dbl_h(ln, uu))
+    if d < 12:
+        return triple(ln.ld(SD2 + 6 + u)), ln.ld(SPT + 6)
+    if d < 14:
+        return negk(dbl_h(ln, u), 8), ln.ld(SPT + 7)
+    ln.st(SD3 + d, subk(dbl_e(ln, u), ln.ld(SD2 + 2 + u), 2))
+    return None
+
+
+def sparse_leaf_ops(ln, k):
+    r = k // 3
+    blk, j = r // 3, r % 3
+
+    def left(u):
+        f0 = SF + 2 * j + u
+        if blk < 2:
+            return ln.ld(f0)
+        if blk == 2:
+            return ln.ld(f0 + 6)
+        return add(ln.ld(f0), ln.ld(f0 + 6))
+
+    def right(u):
+        la, lb, lc = SD3 + 14 + u, SD3 + 10 + u, SD3 + 12 + u
+        if blk in (0, 3):
+            return ln.ld(la)
+        if blk == 1:
+            return ln.ld(lb)
+        if blk == 2:
+            return ln.ld(lc)
+        return add(ln.ld(lb), ln.ld(lc))
+    return kara_ops(k % 3, left, right)
+
+
+def dbl_late_ops(ln, d):
+    if d < 4:
+        return kara(ln, SD3 + (4 if d < 2 else 7), d % 2), ONE
+    if d < 7:
+        return kara_ops(d - 4, lambda u: ln.ld(SD3 + u),
+                        lambda u: subk(ln.ld(SD2 + 2 + u),
+                                       triple(dbl_e(ln, u)), 144))
+    g = lambda u: ln.ld(SD3 + 2 + u)
+    return kara_ops(d - 7, g, g)
+
+
+def sparse_comb(ln, s):
+    F, j = s // 3, s % 3
+
+    def Pr(blk, jj, u):
+        return kara(ln, SLEAF + 3 * (3 * blk + jj), u)
+
+    def xi6(blk, jj, u):
+        v0, v1 = Pr(blk, jj, 0), Pr(blk, jj, 1)
+        return subk(v0, v1, 6) if u == 0 else add(v0, v1)
+    for u in range(2):
+        if F == 1:
+            c = xi6(2, 2, u) if j == 0 else Pr(2, j - 1, u)
+        else:
+            ba = 0 if F == 0 else 3
+            c = add(Pr(ba, j, u), xi6(ba + 1, 2, u) if j == 0
+                    else Pr(ba + 1, j - 1, u))
+        ln.st(ST6 + 6 * F + 2 * j + u, c)
+
+
+def miller_dbl_twin(f, X, Y, Z, px, py):
+    """miller_iter_dbl_kernel for one lane (ints: f 12, X, Y, Z 2 each);
+    returns (f', X3, Y3, Z3) and the lane."""
+    ln = Lane(SSLOTS)
+    ins = f + X + Y + Z + [px, py]
+    ln.level(20, lambda k: ln.st(SF + k if k < 12 else SPT + k - 12, ins[k]))
+    tinv = CT.TWO_INV_MONT
+    out = {"f": [None] * 12, "X": [None] * 2, "Y": [None] * 2,
+           "Z": [None] * 2}
+
+    def level_a(k):
+        x, y = (f12_leaf_ops(ln, SF, SF, k) if k < 54
+                else dbl_leaf_ops(ln, k - 54))
+        ln.st(SLEAF + k, ln.mont(x, y))
+
+    def level_b(k):
+        if k < 10:
+            ln.st(SD2 + k, ln.post_red(kara(ln, SLEAF + 54 + 3 * (k // 2),
+                                            k % 2)))
+        else:
+            f6_comb(ln, SLEAF, ST6, k - 10)
+
+    def level_c(k):
+        if k < 12:
+            ln.st(SF + k, ln.post_red(f12_comb(ln, ST6, k, 24, 42)))
+            return
+        ops = dbl_mid_ops(ln, k - 12, tinv)
+        if ops is not None:
+            ln.st(SD3 + k - 12, ln.mont(*ops))
+
+    def level_d(k):
+        r = ln.mont(*(sparse_leaf_ops(ln, k) if k < 45
+                      else dbl_late_ops(ln, k - 45)))
+        if k in (47, 48):
+            out["Z"][k - 47] = r
+        else:
+            ln.st(SLEAF + k, r)
+
+    def level_e(k):
+        if k < 4:
+            r = ln.post_red(kara(ln, SLEAF + (49 if k < 2 else 52), k % 2))
+            if k < 2:
+                out["X"][k] = r
+            else:
+                ln.st(SD2 + k - 2, r)
+        else:
+            sparse_comb(ln, k - 4)
+
+    def level_f(k):
+        if k < 12:
+            out["f"][k] = ln.post_red(f12_comb(ln, ST6, k, 12, 18))
+        else:
+            u = k - 12
+            out["Y"][u] = subk(ln.ld(SD2 + u), triple(ln.ld(SLEAF + 45 + u)),
+                               8)
+    for n, task in ((69, level_a), (19, level_b), (28, level_c), (55, level_d),
+                    (13, level_e), (14, level_f)):
+        ln.level(n, task)
+    return (out["f"], out["X"], out["Y"], out["Z"]), ln
+
+
+# ------------------------------------------------------------------ tests
+
+def ints(x):
+    """numpy limbs (25, *rest) -> nested lists of ints over rest."""
+    w = x.astype(object)
+    return np.tensordot(np.array([1 << (16 * i) for i in range(FQ.n)],
+                                 dtype=object), w, axes=(0, 0))
+
+
+def limbs(v: int):
+    return [(v >> (16 * i)) & 0xFFFF for i in range(FQ.n)]
+
+
+def f12_lanes(seed, lanes, bound, edges):
+    return with_edges(rand_coeffs(seed, 12, lanes, bound=bound), edges)
+
+
+def test_tower_offsets_and_constants():
+    """make_tower_w's k p words and 1/2's packing; the Fq12 leaves' operand
+    masks cover each Karatsuba leaf once."""
+    for k, v in KP.items():
+        assert v < 1 << 400 and words(v)[NW - 1] >> 16 == 0, k
+    assert (2 * CT.TWO_INV_MONT * pow(1 << 400, -1, P) - 1) % P == 0
+    masks = [f12_leaf_mask(k) for k in range(54)]
+    assert len(set(masks)) == 54
+    assert max(bin(m).count("1") for m in masks) == 8
+    assert [bin(m).count("1") for m in masks[:3]] == [1, 1, 2]
+
+
+@pytest.mark.parametrize("case", ["random", "32p-1"])
+def test_group_fq12_product_matches_plain(case):
+    """The three levels of a b against fq12_mul_plain, up to the widest
+    operands (every coefficient 32p - 1: leaf sums of 8 at 256p)."""
+    lanes = 3
+    top = 32 * P - 1
+    edges = ([top, top, 0], [top, 1, top]) if case == "32p-1" else ([], [])
+    a = f12_lanes(41, lanes, 32 * P, edges[0])
+    b = f12_lanes(42, lanes, 32 * P, edges[1])
+    want = CT.fq12_mul_plain(limbs_from_numpy(a, device="cpu"),
+                             limbs_from_numpy(b, device="cpu"))
+    va, vb = ints(a), ints(b)
+    for lane in range(lanes):
+        ln = Lane(12 + 12 + 12 + 54 + 18)
+        ln.level(12, lambda c: (ln.st(c, int(va[c, lane])),
+                                ln.st(12 + c, int(vb[c, lane]))))
+        f12_mul(ln, 0, 12, 24, 36, 90)
+        got = [limbs(ln.ld(24 + c)) for c in range(12)]
+        assert got == want[:, :, lane].T.tolist()
+        assert ln.products == 66
+        assert ln.rounds[8] == 9 and ln.rounds[32] == 3
+
+
+@pytest.mark.parametrize("e", [abs(C.X), (abs(C.X) + 1) // 3])
+def test_group_cyc_pow_matches_plain(e):
+    """cyc_pow_kernel's schedule against cyc_pow_plain: seeded lanes < 2p
+    and a lane with every coefficient 2p - 1 (chip_smoke.py's edge)."""
+    lanes = 2
+    a = f12_lanes(43, lanes, 2 * P, [2 * P - 1])
+    want = CT.cyc_pow_plain(limbs_from_numpy(a, device="cpu"), e)
+    va = ints(a)
+    for lane in range(lanes):
+        got, ln = cyc_pow_twin([int(va[c, lane]) for c in range(12)], e)
+        assert [limbs(v) for v in got] == want[:, :, lane].T.tolist()
+        ones = bin(e).count("1")
+        assert ln.products == 64 * 30 + ones * 66
+        # at G = 32: 2 product rounds a square, 3 a product (plus one
+        # level of Fq6 values without products)
+        assert ln.rounds[32] == 64 * 2 + ones * 3
+
+
+def test_group_miller_iter_dbl_matches_plain():
+    """miller_iter_dbl_kernel's six levels against miller_iter_dbl_plain:
+    seeded lanes (f < 2p, X, Z < 2p, Y < 10p, P < p), lane 0 at the top of
+    every bound (Y = 10p - 1, P at p - 1), lane 1 with R and P zero (P at
+    the padding point (0, 0))."""
+    lanes = 4
+    f = f12_lanes(44, lanes, 2 * P, [2 * P - 1, 2 * P - 1])
+    fq2 = lambda seed, bound, top: with_edges(
+        rand_coeffs(seed, 2, lanes, bound=bound), [top, 0])
+    X, Y, Z = fq2(45, 2 * P, 2 * P - 1), fq2(46, 10 * P, 10 * P - 1), \
+        fq2(47, 2 * P, 2 * P - 1)
+    px, py = (with_edges(rand_coeffs(s, 1, lanes), [P - 1, 0])[:, 0]
+              for s in (48, 49))
+    t = lambda x: limbs_from_numpy(x, device="cpu")
+    wf, wR = CT.miller_iter_dbl_plain(t(f), (t(X), t(Y), t(Z)), t(px), t(py))
+    vf, vX, vY, vZ, vpx, vpy = (ints(x) for x in (f, X, Y, Z, px, py))
+    for lane in range(lanes):
+        (gf, gX, gY, gZ), ln = miller_dbl_twin(
+            [int(vf[c, lane]) for c in range(12)],
+            *([int(v[u, lane]) for u in range(2)] for v in (vX, vY, vZ)),
+            int(vpx[lane]), int(vpy[lane]))
+        assert [limbs(v) for v in gf] == wf[:, :, lane].T.tolist()
+        for g, w in zip((gX, gY, gZ), wR):
+            assert [limbs(v) for v in g] == w[:, :, lane].T.tolist()
+        assert ln.products == 176
+        assert ln.rounds[8] == 25
+
+
+def test_tower_variants_imports_neither_jax_nor_the_jax_package():
+    """The group-size variants script runs on the card, without JAX."""
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "import groth_sahai_tpu_torch.utils.tower_variants as tv\n"
+            "assert set(tv.variants()) >= {'as built', 'G=4', 'G=16'}\n"
+            "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
+            "       and (m == 'groth_sahai_tpu' or m.startswith(\n"
+            "            ('groth_sahai_tpu.', 'jax.')) or m == 'jax')]\n"
+            "assert not bad, bad\n"
+            "print('clean')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         env=dict(os.environ, PYTHONPATH=str(repo)),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and "clean" in res.stdout, res.stderr
