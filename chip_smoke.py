@@ -9,21 +9,25 @@ Phases (any failure exits non-zero and prints no result line):
                 for sm_90a, one process per source, all at once; prints the
                 build time, the compiler's resource report, the card's
                 name and power limit, and from cuobjdump the instructions of
-                the packed-word kernels (cadd, cmsm_row_scan, cyc_pow,
-                miller_iter_dbl) and of their Montgomery product, with the
-                last two's frames, spills and registers;
+                the packed-word kernels (cadd, cmsm_row_scan, cdbl_n_add,
+                fq12_mul, cyc_pow, miller_iter_dbl) and of their Montgomery
+                product, with the grouped kernels' frames, spills and
+                registers;
   2. kernels -- each of the sixteen kernels against its plain PyTorch version on
                 the card, bit-exact, at the paths' main shapes: the field
                 kernels at Fq width over the pairing's stacks (16384,
                 442368, 98304 and 8192 lanes) and at Fr width over 8192
-                lanes; fq12_mul over 4096 and 4 lanes, cyc_pow over 4096
+                lanes; fq12_mul over 4096, 2048 and 4 lanes and the ragged
+                1, 3 and 1000, cyc_pow over 4096
                 and 4 for the final exponentiation's three exponents and
                 over the ragged 1, 3 and 1000 lanes; the Miller iterations
                 and cyc_sqr over 4096, miller_iter_dbl also over 1, 3, 1000
                 and 4099 lanes, f12_pow_dyn over 4096 and 1024; cmadd and
                 cdbl_n_add (n = 4) on G1 over 4096, 1336 and 4 lanes and on
                 G2 over 1336 and 4, cdbl_n_add on G2 with n = 8 over 668
-                (verify-ppe-334's window combination); cadd
+                (verify-ppe-334's window combination), on G1 with n = 13
+                over 1 lane (msm-g1-65536's) and on G1 and G2 with n = 8
+                over 1000 lanes and n = 13 over 3; cadd
                 and cmsm_row_scan at the MSM paths' widest calls (G2 at
                 verify-ppe-334's 668 MSMs, G1 at msm-g1-65536's, G2 at
                 prove-ppe-334's) and at ragged widths of 1000 and 4 lanes;
@@ -517,10 +521,13 @@ MAIN_FIELD = {"cmadd": "G1", "cdbl_n_add": "G1"}     # others: Fq
 # verify-ppe-334's Gamma d combines its windows with one cdbl_n_add per
 # window over its 2 PPE_M G2 MSMs, n_dbl = the window (ppe_window(PPE_M))
 GAMMA_D_SHIFT = ("G2", 2 * PPE_M, 8)
-ALSO_TIMED = {"cyc_pow": [("Fq", 4)],
+# msm-g1-65536 combines its windows over one lane, n_dbl = 13
+MSM_G1_SHIFT = ("G1", 1, 13)
+ALSO_TIMED = {"fq12_mul": [("Fq", 4), ("Fq", 2048)],
+              "cyc_pow": [("Fq", 4)],
               "cmadd": [("G2", COMMIT_LANES), ("G1", COMMIT_LANES)],
-              "cdbl_n_add": [("G2", COMMIT_LANES), ("G1", COMMIT_LANES),
-                             GAMMA_D_SHIFT]}
+              "cdbl_n_add": [("G2", COMMIT_LANES, 4), ("G1", COMMIT_LANES, 4),
+                             GAMMA_D_SHIFT, MSM_G1_SHIFT]}
 # ragged widths of the grouped kernels (lanes not a multiple of a block's)
 RAGGED = (1, 3, 1000)
 
@@ -710,7 +717,8 @@ def phase2_shapes():
     shapes = [(name, field, PATH_LANES[name] if field is FQ else BATCH,
                field.p - 2 if name == "pow_const" else None)
               for field in (FQ, FR) for name in FIELD]
-    shapes += [("fq12_mul", FQ, m, None) for m in (PATH_LANES["fq12_mul"], 4)]
+    shapes += [("fq12_mul", FQ, m, None)
+               for m in (PATH_LANES["fq12_mul"], 2048, 4) + RAGGED]
     shapes += [("cyc_pow", FQ, m, e)
                for m in [FUSED] + [m for _, m in ALSO_TIMED["cyc_pow"]]
                for e in (v_abs // 3, v_abs, abs(C.X))]
@@ -725,7 +733,11 @@ def phase2_shapes():
         shapes += [(name, G1, m, e) for m in (SCALAR_LANES, COMMIT_LANES, 4)]
         shapes += [(name, G2, m, e) for m in (COMMIT_LANES, 4)]
     assert ppe_window(PPE_M) == GAMMA_D_SHIFT[2]
+    assert msm_geometry(MSM_POINTS)[0] == MSM_G1_SHIFT[2]
     shapes.append(("cdbl_n_add", G2) + GAMMA_D_SHIFT[1:])
+    shapes.append(("cdbl_n_add", G1) + MSM_G1_SHIFT[1:])
+    shapes += [("cdbl_n_add", c, m, n) for c in (G1, G2)
+               for m, n in ((1000, 8), (3, 13))]
     curves = {"G1": G1, "G2": G2}
     for name in MSM_KERNELS:      # the report's shapes, then ragged widths
         shapes += [(name, curves[c], m, e) for c, m, e in msm_shapes(name)]
@@ -1978,16 +1990,17 @@ def main() -> int:
                     print("    " + line.strip(), flush=True)
         print(f"[build] {len(libs)} libraries in {phases['build']:.1f} s on "
               f"{card}", flush=True)
-        from groth_sahai_tpu_torch.utils.curve_variants import (ptxas_report,
-                                                                sass_report)
+        from groth_sahai_tpu_torch.utils.curve_variants import (
+            CDBL_PTXAS, CDBL_SASS, ptxas_report, sass_report)
         from groth_sahai_tpu_torch.utils.tower_variants import PTXAS, TOWER_SASS
-        tower = cuda_tower.LIBRARY.path()
-        for line in (sass_report(cuda_curve.LIBRARY.path())
+        tower, curve = cuda_tower.LIBRARY.path(), cuda_curve.LIBRARY.path()
+        for line in (sass_report(curve) + sass_report(curve, CDBL_SASS)
                      + sass_report(tower, TOWER_SASS)):
             print(f"[sass] {line}", flush=True)
-        for line in ptxas_report(tower.with_suffix(".log").read_text(),
-                                 PTXAS):
-            print(f"[ptxas] {line}", flush=True)
+        for lib, pattern in ((curve, CDBL_PTXAS), (tower, PTXAS)):
+            for line in ptxas_report(lib.with_suffix(".log").read_text(),
+                                     pattern):
+                print(f"[ptxas] {line}", flush=True)
 
         t0 = time.perf_counter()
         worst, timing, checked = check_kernels(device)

@@ -1,12 +1,12 @@
-// In-thread complete projective group law (RCB16 Algorithms 7-9, a = 0)
-// of the fused curve kernels, for G1 over Fq and G2 over Fq2.
+// In-thread complete mixed add (RCB16 Algorithm 8, a = 0) of the curve
+// kernel cmadd, for G1 over Fq and G2 over Fq2.
 //
 // Port of the in-kernel curve math of groth_sahai_tpu/ops/pallas_curve.py:
-// the field adapters _FqA and _Fq2A (here FqA and Fq2A) and the bodies
-// _cmadd_body, _cadd_body and _cdbl_body, each written once as a template
-// over its adapter. One thread owns one point: its coordinates are Fq
-// (25 limbs) or Fq2 (2 x 25 limbs) values in the thread's local memory, as
-// in tower.cuh.
+// the field adapters _FqA and _Fq2A (here FqA and Fq2A) and the body
+// _cmadd_body, written once as a template over its adapter. One thread
+// owns one point: its coordinates are Fq (25 limbs) or Fq2 (2 x 25 limbs)
+// values in the thread's local memory, as in tower.cuh. (The other bodies
+// run on packed 32-bit words: curve_w32.cuh, curve_group_w32.cuh.)
 //
 // Representation: (X, Y, Z) homogeneous, x = X/Z, y = Y/Z, infinity
 // (0 : y : 0); coordinates < 4p in and out of every body (the reference's
@@ -62,9 +62,6 @@ struct FqA {
                                                 uint32_t, T& c) {
     mul_small<N>(a, 12, c);
   }
-  __device__ static __forceinline__ void copy(const T& a, T& c) {
-    tower::copy(a, c);
-  }
   // Lane `lane` of an int64 [25, M] batch: limb i at i M + lane.
   __device__ static __forceinline__ void load(const int64_t* src, int64_t m,
                                               int64_t lane, T& x) {
@@ -112,10 +109,6 @@ struct Fq2A {
     gs::add<N>(a[0], a[1], t[1]);
     mul_small<N>(t[0], 12, c[0]);
     mul_small<N>(t[1], 12, c[1]);
-  }
-  __device__ static __forceinline__ void copy(const T& a, T& c) {
-    tower::copy(a[0], c[0]);
-    tower::copy(a[1], c[1]);
   }
   // Lane `lane` of an int64 [25, 2, M] batch: limb i of component u at
   // (2 i + u) M + lane.
@@ -198,76 +191,6 @@ __device__ __noinline__ void cmadd_body(
   F::select(ainf, X1, X3, X3);
   F::select(ainf, Y1, Y3, Y3);
   F::select(ainf, Z1, Z3, Z3);
-}
-
-// Complete projective add (_cadd_body); coords < 4p in and out, no select.
-// Bounds: t2 < 48p after mul_b3, Z3 and t1 < 50p, Y3' < 144p.
-// 12 Montgomery products (60 for Fq2). Outputs must not alias inputs.
-template <class F>
-__device__ __noinline__ void cadd_body(
-    const FieldQ& f, const typename F::T& X1, const typename F::T& Y1,
-    const typename F::T& Z1, const typename F::T& X2,
-    const typename F::T& Y2, const typename F::T& Z2, typename F::T& X3,
-    typename F::T& Y3, typename F::T& Z3) {
-  typename F::T t0, t1, t2, t3, t4, u, v;
-  F::mul(f, X1, X2, t0);                       // < 2p
-  F::mul(f, Y1, Y2, t1);                       // < 2p
-  F::mul(f, Z1, Z2, t2);                       // < 2p
-  F::add(X1, Y1, u);
-  F::add(X2, Y2, v);
-  F::mul(f, u, v, t3);                         // < 2p
-  F::add(t0, t1, u);
-  F::sub(f, t3, u, 4, t3);                     // < 6p
-  F::add(Y1, Z1, u);
-  F::add(Y2, Z2, v);
-  F::mul(f, u, v, t4);                         // < 2p
-  F::add(t1, t2, u);
-  F::sub(f, t4, u, 4, t4);                     // < 6p
-  F::add(X1, Z1, u);
-  F::add(X2, Z2, v);
-  F::mul(f, u, v, Y3);                         // < 2p
-  F::add(t0, t2, u);
-  F::sub(f, Y3, u, 4, Y3);                     // < 6p
-  F::dbl(t0, u);
-  F::add(u, t0, t0);                           // < 6p
-  F::mul_b3(f, t2, 2, t2);                     // < 48p
-  F::add(t1, t2, Z3);                          // < 50p
-  F::sub(f, t1, t2, 48, t1);                   // < 50p
-  F::mul_b3(f, Y3, 8, Y3);                     // < 144p
-  finish<F>(f, t0, t1, t3, t4, X3, Y3, Z3);
-}
-
-// Complete doubling (_cdbl_body); coords < 4p in, (< 4p, < 4p, < 2p) out.
-// Bounds: Z3 = 8 t0 < 16p, t2 < 48p, Y3 < 50p, 3 t2 < 144p, t0 - 3 t2
-// + 144p < 146p. 8 Montgomery products (40 for Fq2). Outputs must not
-// alias inputs.
-template <class F>
-__device__ __noinline__ void cdbl_body(const FieldQ& f,
-                                       const typename F::T& X,
-                                       const typename F::T& Y,
-                                       const typename F::T& Z,
-                                       typename F::T& X3, typename F::T& Y3,
-                                       typename F::T& Z3) {
-  typename F::T t0, t1, t2, u, v;
-  F::mul(f, Y, Y, t0);                         // < 2p
-  F::dbl(t0, u);
-  F::dbl(u, u);
-  F::dbl(u, Z3);                               // 8 t0 < 16p
-  F::mul(f, Y, Z, t1);                         // < 2p
-  F::mul(f, Z, Z, u);
-  F::mul_b3(f, u, 2, t2);                      // < 48p
-  F::mul(f, t2, Z3, X3);                       // < 2p
-  F::add(t0, t2, Y3);                          // < 50p
-  F::mul(f, t1, Z3, u);
-  F::copy(u, Z3);                              // < 2p
-  F::dbl(t2, u);
-  F::add(u, t2, t2);                           // 3 t2 < 144p
-  F::sub(f, t0, t2, 144, t0);                  // < 146p
-  F::mul(f, t0, Y3, u);
-  F::add(X3, u, Y3);                           // < 4p
-  F::mul(f, X, Y, u);
-  F::mul(f, t0, u, v);
-  F::dbl(v, X3);                               // < 4p
 }
 
 }  // namespace curve

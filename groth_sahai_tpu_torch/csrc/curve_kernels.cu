@@ -17,18 +17,31 @@
 // bucket differences and the window folds, and one cdbl_n_add per window
 // (n_dbl = the window) to combine the windows.
 //
-// Work split: one thread per lane. A G1 coordinate batch is int64 [25, M]
-// (limb i of lane l at i M + l), a G2 coordinate batch [25, 2, M], the
-// affine infinity flags one byte per lane, so the threads of a warp read
-// neighbouring words.
+// Work split: one thread per lane, but for cdbl_n_add (below). A G1
+// coordinate batch is int64 [25, M] (limb i of lane l at i M + l), a G2
+// coordinate batch [25, 2, M], the affine infinity flags one byte per
+// lane, so the threads of a warp read neighbouring words.
 //
-// cmadd and cdbl_n_add run curve.cuh's group law on 16-bit limbs, one
-// limb per 32-bit word, in blocks of 32 threads. What bounds them: each of
-// their products (mont_mul, 1,250 16x16-bit multiply-adds) reads its
-// operands from the thread's local memory through an out-of-line call; at
-// the few thousand lanes of the scalar multiplications one thread per lane
-// leaves most of the card idle, and each thread's chain of dependent
-// products sets the time.
+// cmadd runs curve.cuh's group law on 16-bit limbs, one limb per 32-bit
+// word, in blocks of 32 threads. What bounds it: each of its products
+// (mont_mul, 1,250 16x16-bit multiply-adds) reads its operands from the
+// thread's local memory through an out-of-line call; at the few thousand
+// lanes of the scalar multiplications one thread per lane leaves most of
+// the card idle, and each thread's chain of dependent products sets the
+// time.
+//
+// cdbl_n_add has the same bound at its widths (668 G2 lanes for
+// verify-ppe-334's window combination, 1336 for the commits' scalar
+// multiplications, one lane for msm-g1-65536's), with a longer chain: 8 n
+// + 12 products a lane (x5 on G2). Its design (curve_group_w32.cuh over
+// group_w32.cuh and field_w32.cuh) is for that bound: Fq as 13 packed
+// words at R = 2^400 as below, and a group of G threads working each lane
+// (G = kCdblGroupG1, kCdblGroupG2), the lane's values in slots of the
+// group's shared memory, the independent products of each level of the
+// doubling and the add taken side by side: a G2 doubling is 4 rounds of
+// products at G = 16 where one thread makes 40 (utils/curve_variants.py
+// --groups times G = 4 to 32). Blocks of kCdblLanes lanes; a ragged
+// block's inactive lanes leave as whole groups.
 //
 // cadd and cmsm_row_scan carry the MSM's widest launches (up to 2.76 M G2
 // lanes, and 85,504 G2 lanes x 128 rows at verify-ppe-334), where the card
@@ -70,9 +83,11 @@
 #include <cstdint>
 
 #include "curve.cuh"
+#include "curve_group_w32.cuh"
 #include "curve_w32.cuh"
 #include "field.cuh"
 #include "field_w32.cuh"
+#include "group_w32.cuh"
 
 namespace {
 
@@ -80,12 +95,19 @@ using gs::curve::FieldQ;
 using gs::curve::Fq2A;
 using gs::curve::FqA;
 using gs::curve::N;
+using gs::cw::CurveW;
 using gs::w32::Column;
 using gs::w32::FieldW;
+using gs::w32::Fw;
 using gs::w32::kWords;
+using gs::w32::lane_words;
 
-constexpr int kThreads = 32;    // cmadd, cdbl_n_add
+constexpr int kThreads = 32;    // cmadd
 constexpr int kWThreads = 64;   // cadd, cmsm_row_scan
+// cdbl_n_add: threads a lane on G1 and on G2, and lanes a block
+constexpr int kCdblGroupG1 = 4;
+constexpr int kCdblGroupG2 = 16;
+constexpr int kCdblLanes = 8;
 
 // Complete projective + affine add: (X1 : Y1 : Z1) + (x2, y2), the
 // accumulator unchanged where the affine point is at infinity.
@@ -109,36 +131,40 @@ cmadd_kernel(const __grid_constant__ FieldQ f, const int64_t* X1,
   F::store(oZ, m, lane, Z3);
 }
 
-// n_dbl complete doublings of P, then P + Q, in one launch: a loop over
-// one out-of-line doubling body (n_dbl is a run-time argument), then the
-// complete add.
-template <class F>
-__global__ void __launch_bounds__(kThreads)
-cdbl_n_add_kernel(const __grid_constant__ FieldQ f, int n_dbl,
+// n_dbl complete doublings of P, then P + Q (cdbl_n_add), S Fq components
+// a coordinate (coordinates < 4p in and out). A group of G threads works a
+// lane, over its slots in shared memory (curve_group_w32.cuh); n_dbl is a
+// run-time argument, the same for every lane, so no group diverges.
+template <int S, int G>
+__global__ void __launch_bounds__(kCdblLanes * G)
+cdbl_n_add_kernel(const __grid_constant__ CurveW t, int n_dbl,
                   const int64_t* X1, const int64_t* Y1, const int64_t* Z1,
                   const int64_t* X2, const int64_t* Y2, const int64_t* Z2,
                   int64_t* oX, int64_t* oY, int64_t* oZ, int64_t m) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  using L = gs::cw::CurveSlots<S>;
+  extern __shared__ uint32_t smem[];
+  const int rank = threadIdx.x / G;
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kCdblLanes + rank;
   if (lane >= m) return;
-  typename F::T X, Y, Z, A, B, C;
-  F::load(X1, m, lane, X);
-  F::load(Y1, m, lane, Y);
-  F::load(Z1, m, lane, Z);
+  const auto grp = gs::w32::group_of<G>(smem + rank * lane_words(L::kSlots));
+  gs::w32::level(grp, 7 * S, [&](int k) {      // P, Q, the zero coordinate
+    const int c = k / S;
+    if (c == 6) {
+      grp.st(L::kZero + k % S, Fw{});
+      return;
+    }
+    const int64_t* src = c == 0 ? X1 : c == 1 ? Y1 : c == 2 ? Z1
+                       : c == 3 ? X2 : c == 4 ? Y2 : Z2;
+    grp.st(c < 3 ? L::kP + k : L::kQ + k - 3 * S,
+           gs::w32::load_coef(src, S, k % S, m, lane));
+  });
+  gs::cw::Pt p = gs::cw::loaded<S>(L::kP);
 #pragma unroll 1
-  for (int i = 0; i < n_dbl; ++i) {
-    gs::curve::cdbl_body<F>(f, X, Y, Z, A, B, C);
-    F::copy(A, X);
-    F::copy(B, Y);
-    F::copy(C, Z);
-  }
-  typename F::T Xq, Yq, Zq;
-  F::load(X2, m, lane, Xq);
-  F::load(Y2, m, lane, Yq);
-  F::load(Z2, m, lane, Zq);
-  gs::curve::cadd_body<F>(f, X, Y, Z, Xq, Yq, Zq, A, B, C);
-  F::store(oX, m, lane, A);
-  F::store(oY, m, lane, B);
-  F::store(oZ, m, lane, C);
+  for (int i = 0; i < n_dbl; ++i) p = gs::cw::cdbl<S>(t, grp, p);
+  gs::cw::cadd<S>(t, grp, p, gs::cw::loaded<S>(L::kQ),
+                  [&](int c, int u, const Fw& v) {
+    gs::w32::store_coef(c == 0 ? oX : c == 1 ? oY : oZ, S, u, m, lane, v);
+  });
 }
 
 // Complete projective add P + Q (coordinates < 4p in and out), S Fq
@@ -348,14 +374,20 @@ int launch_cmsm_row_scan(const FieldW& f, int rows, const int64_t* x,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class F>
-int launch_cdbl_n_add(const FieldQ& f, int n_dbl, const int64_t* X1,
+template <int S, int G>
+int launch_cdbl_n_add(const CurveW& t, int n_dbl, const int64_t* X1,
                       const int64_t* Y1, const int64_t* Z1,
                       const int64_t* X2, const int64_t* Y2,
                       const int64_t* Z2, int64_t* oX, int64_t* oY,
                       int64_t* oZ, int64_t m, cudaStream_t stream) {
-  cdbl_n_add_kernel<F><<<grid_of(m), kThreads, 0, stream>>>(
-      f, n_dbl, X1, Y1, Z1, X2, Y2, Z2, oX, oY, oZ, m);
+  constexpr int bytes =
+      kCdblLanes * lane_words(gs::cw::CurveSlots<S>::kSlots) * 4;
+  static const cudaError_t attr = allow_smem(cdbl_n_add_kernel<S, G>, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cdbl_n_add_kernel<S, G>
+      <<<static_cast<unsigned>((m + kCdblLanes - 1) / kCdblLanes),
+         kCdblLanes * G, bytes, stream>>>(t, n_dbl, X1, Y1, Z1, X2, Y2, Z2,
+                                          oX, oY, oZ, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -382,12 +414,13 @@ int gs_cdbl_n_add(int nl, int ns, int n_dbl, const int64_t* X1,
                   int64_t* oY, int64_t* oZ, int64_t m, const uint32_t* p,
                   const uint32_t* one, uint32_t n0, void* stream) {
   if (nl != N || (ns != 1 && ns != 2)) return -1;
-  const FieldQ f = gs::make_field<N>(p, one, n0);
+  const CurveW t = gs::cw::make_curve_w(p, one, n0);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return ns == 1 ? launch_cdbl_n_add<FqA>(f, n_dbl, X1, Y1, Z1, X2, Y2, Z2,
-                                          oX, oY, oZ, m, s)
-                 : launch_cdbl_n_add<Fq2A>(f, n_dbl, X1, Y1, Z1, X2, Y2,
-                                           Z2, oX, oY, oZ, m, s);
+  return ns == 1
+      ? launch_cdbl_n_add<1, kCdblGroupG1>(t, n_dbl, X1, Y1, Z1, X2, Y2, Z2,
+                                           oX, oY, oZ, m, s)
+      : launch_cdbl_n_add<2, kCdblGroupG2>(t, n_dbl, X1, Y1, Z1, X2, Y2, Z2,
+                                           oX, oY, oZ, m, s);
 }
 
 int gs_cadd(int nl, int ns, const int64_t* X1, const int64_t* Y1,

@@ -1,5 +1,7 @@
-// In-thread Fq arithmetic on packed 32-bit words, for the Hopper curve
-// kernels cadd and cmsm_row_scan.
+// In-thread Fq arithmetic on packed 32-bit words, for the Hopper kernels
+// on packed words: cadd and cmsm_row_scan (curve_w32.cuh), cdbl_n_add
+// (curve_group_w32.cuh), fq12_mul, cyc_pow and miller_iter_dbl
+// (tower_w32.cuh).
 //
 // An Fq value is the integer of the port's 25 16-bit limbs (Montgomery form,
 // R = 2^400) held in 13 uint32 words, little-endian: word k = limb 2k |
@@ -64,6 +66,19 @@ inline void pack_host(const uint32_t* limbs, uint32_t* words) {
   }
 }
 
+// k p as packed words for each k of ks[0 .. n - 1], from p's packed words.
+inline void kp_words(const uint32_t (&p)[kWords], const uint32_t* ks, int n,
+                     uint32_t (*out)[kWords]) {
+  for (int i = 0; i < n; ++i) {
+    uint64_t c = 0;
+    for (int j = 0; j < kWords; ++j) {
+      c += static_cast<uint64_t>(p[j]) * ks[i];
+      out[i][j] = static_cast<uint32_t>(c);
+      c >>= 32;
+    }
+  }
+}
+
 inline FieldW make_field_w(const uint32_t* p16, const uint32_t* one16,
                            uint32_t n0) {
   FieldW f;
@@ -71,14 +86,7 @@ inline FieldW make_field_w(const uint32_t* p16, const uint32_t* one16,
   pack_host(p16, p);
   for (int j = 0; j < kPWords; ++j) f.p[j] = p[j];
   pack_host(one16, f.one);
-  for (int i = 0; i < kKinds; ++i) {
-    uint64_t c = 0;
-    for (int j = 0; j < kWords; ++j) {
-      c += static_cast<uint64_t>(p[j]) * kKp[i];
-      f.kp[i][j] = static_cast<uint32_t>(c);
-      c >>= 32;
-    }
-  }
+  kp_words(p, kKp, kKinds, f.kp);
   // p^-1 mod 2^32 by Newton's iteration: x = p0 is right to 3 bits (p odd),
   // each step doubles the bits that are right (3, 6, 12, 24, 48).
   uint32_t x = p[0];
@@ -164,6 +172,17 @@ __device__ __forceinline__ Fw add(const Fw& a, const uint32_t (&b)[kWords]) {
 
 __device__ __forceinline__ Fw add(const Fw& a, const Fw& b) {
   return add(a, b.w);
+}
+
+__device__ __forceinline__ Fw dbl(const Fw& a) { return add(a, a); }
+__device__ __forceinline__ Fw triple(const Fw& a) { return add(dbl(a), a); }
+
+// The value of 13 words (a constant of the launch).
+__device__ __forceinline__ Fw words_of(const uint32_t (&w)[kWords]) {
+  Fw c;
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) c.w[j] = w[j];
+  return c;
 }
 
 // a - b for a >= b.

@@ -21,7 +21,7 @@
 //
 // Work split: an Fq12 batch is int64 [25, 12, M] (limb i of coefficient c
 // of lane l at (12 i + c) M + l), an Fq2 batch [25, 2, M], an Fq batch
-// [25, M], Fr scalars [17, M]. Six kernels run one thread per lane, as in
+// [25, M], Fr scalars [17, M]. Five kernels run one thread per lane, as in
 // fp_kernels.cu, in blocks of 32 threads that spread the few thousand lanes
 // of these calls over all 132 SMs.
 //
@@ -35,8 +35,9 @@
 // batches the real limit is the latency of one thread's long chain of
 // products, each about 5.5 us.
 //
-// cyc_pow and miller_iter_dbl, the two that lose the most time on the
-// verifier's path, are designed for that limit (tower_w32.cuh):
+// fq12_mul, cyc_pow and miller_iter_dbl, the three that lose the most
+// time on the verifier's path, are designed for that limit (tower_w32.cuh
+// over group_w32.cuh):
 //   * an Fq value is 13 packed 32-bit words at the same R = 2^400, and
 //     every product is field_w32.cuh's out-of-line `mont` with its
 //     operands and result in registers, so the limbs at the boundary do
@@ -48,15 +49,18 @@
 //     (cyc_pow, e = |x|) and 176 (a doubling iteration) to the levels'
 //     rounds of products: a cyclotomic square 2 and an Fq12 product 3 at
 //     cyc_pow's G = 32 (146 for e = |x|), a doubling iteration 25 at
-//     G = 8.
+//     G = 8, an Fq12 product 5 at fq12_mul's G = 16.
 //     G is the fastest of 4, 8, 16 and 32 for each kernel on the paths'
 //     shapes (utils/tower_variants.py): the verifier's cyc_pow runs over 4
 //     lanes, where nothing else is on the card and only a shorter chain
 //     helps; its Miller loop over 4096 lanes, where G = 8 fills the card
-//     in one wave;
+//     in one wave; fq12_mul runs over both (the Miller product tree from
+//     2048 lanes down to 4, the final exponentiation's products over 4),
+//     and G = 16 comes within 1.33x of the best G at each width;
 //   * the lane's values (its Fq12 values, R, the leaves and Karatsuba
 //     values of each level) live in the group's shared memory, 13 words
-//     an Fq slot: 108 slots for cyc_pow, 133 for the doubling iteration;
+//     an Fq slot: 108 slots for fq12_mul and cyc_pow, 133 for the
+//     doubling iteration;
 //     blocks of kGroupLanes lanes (55 KB of shared memory a block for the
 //     doubling iteration: four blocks an SM hold verify's 4096 lanes in
 //     one wave). Inactive lanes of a ragged block leave as whole groups.
@@ -80,46 +84,20 @@ constexpr int kThreads = 32;
 
 using gs::tw::TowerW;
 using gs::w32::Fw;
+using gs::w32::lane_words;
+using gs::w32::load_coef;
+using gs::w32::store_coef;
 
 // The grouped kernels: threads a lane, and lanes a block.
+constexpr int kFq12MulGroup = 16;
 constexpr int kCycPowGroup = 32;
 constexpr int kDblGroup = 8;
 constexpr int kGroupLanes = 8;
 
-// A lane's words of shared memory: its Fq slots, padded to an odd count so
-// that the lanes of a warp start on different banks.
-__host__ __device__ constexpr int lane_words(int slots) {
-  return slots * gs::w32::kWords | 1;
-}
-
-// cyc_pow's slots: a, two accumulators, the leaves, the Fq6 values.
+// cyc_pow's slots: a, two accumulators, the leaves, the Fq6 values;
+// fq12_mul's: a, b, the product, the leaves, the Fq6 values.
 constexpr int kCycPowSlots = 12 + 12 + 12 + 54 + 18;
-
-// Coefficient c of lane `lane` of a batch int64 [25, S, M] (limb i at
-// (i S + c) M + lane), packed; a limb's value is its int64's low word.
-__device__ __forceinline__ Fw gload(const int64_t* src, int S, int c,
-                                    int64_t m, int64_t lane) {
-  const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
-  Fw v;
-#pragma unroll
-  for (int k = 0; k < gs::w32::kWords; ++k) {
-    const int i = 2 * k;
-    const int64_t at = (static_cast<int64_t>(i) * S + c) * m + lane;
-    const uint32_t lo = __ldg(s + 2 * at);
-    const uint32_t hi = i + 1 < N ? __ldg(s + 2 * (at + S * m)) : 0u;
-    v.w[k] = lo | hi << 16;
-  }
-  return v;
-}
-
-// v's 16-bit limbs to coefficient c of lane `lane` of dst [25, S, M].
-__device__ __forceinline__ void gstore(int64_t* dst, int S, int c, int64_t m,
-                                       int64_t lane, const Fw& v) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    dst[(static_cast<int64_t>(i) * S + c) * m + lane] =
-        v.w[i / 2] >> (16 * (i % 2)) & 0xFFFFu;
-}
+constexpr int kFq12MulSlots = 12 + 12 + 12 + 54 + 18;
 
 __device__ __forceinline__ void load12(const int64_t* src, int64_t m,
                                        int64_t lane, Fp12& x) {
@@ -142,16 +120,30 @@ __device__ __forceinline__ void store12(int64_t* dst, int64_t m, int64_t lane,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-fq12_mul_kernel(const __grid_constant__ FieldQ f, const int64_t* a,
+// a b post-reduced (tower_w32.cuh f12_mul: 54 Karatsuba leaves, nine Fq6
+// values, 12 post-reduced coefficients), bound(a) bound(b) <= 1024 p^2. A
+// group of G threads works a lane. a == b (fq12_sqr) loads a once and
+// squares it through the same slots (f12_mul with B = A: each leaf's
+// operand sum made once).
+template <int G>
+__global__ void __launch_bounds__(kGroupLanes * G)
+fq12_mul_kernel(const __grid_constant__ TowerW t, const int64_t* a,
                 const int64_t* b, int64_t* out, int64_t m) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  extern __shared__ uint32_t smem[];
+  const int rank = threadIdx.x / G;
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kGroupLanes + rank;
   if (lane >= m) return;
-  Fp12 x, y, z;
-  load12(a, m, lane, x);
-  load12(b, m, lane, y);
-  f12_mul_red(f, x, y, z);
-  store12(out, m, lane, z);
+  const auto grp =
+      gs::tw::group_of<G>(smem + rank * lane_words(kFq12MulSlots));
+  constexpr int A = 0, B = 12, OUT = 24, LEAF = 36, T6 = 90;
+  const bool sqr = a == b;
+  gs::tw::level(grp, sqr ? 12 : 24, [&](int k) {
+    grp.st(A + k, load_coef(k < 12 ? a : b, 12, k % 12, m, lane));
+  });
+  gs::tw::f12_mul(t, grp, A, sqr ? A : B, OUT, LEAF, T6);
+  gs::tw::level(grp, 12, [&](int c) {
+    store_coef(out, 12, c, m, lane, grp.ld(OUT + c));
+  });
 }
 
 // a^e for a static e < 2^64: 64 iterations from the Fq12 one (R mod p in
@@ -171,7 +163,7 @@ cyc_pow_kernel(const __grid_constant__ TowerW t, const int64_t* a,
   const auto grp = gs::tw::group_of<G>(smem + rank * lane_words(kCycPowSlots));
   constexpr int X = 0, ACC = 12, TMP = 24, LEAF = 36, T6 = 90;
   gs::tw::level(grp, 12, [&](int c) {
-    grp.st(X + c, gload(a, 12, c, m, lane));
+    grp.st(X + c, load_coef(a, 12, c, m, lane));
     Fw z = gs::tw::words_of(t.f.one);
     if (c != 0) z = Fw{};
     grp.st(ACC + c, z);
@@ -189,7 +181,7 @@ cyc_pow_kernel(const __grid_constant__ TowerW t, const int64_t* a,
     }
   }
   gs::tw::level(grp, 12, [&](int c) {
-    gstore(out, 12, c, m, lane, grp.ld(cur + c));
+    store_coef(out, 12, c, m, lane, grp.ld(cur + c));
   });
 }
 
@@ -254,19 +246,19 @@ miller_iter_dbl_kernel(const __grid_constant__ TowerW t, const int64_t* fin,
   const auto grp = gs::tw::group_of<G>(smem + rank * lane_words(S::kSlots));
   gs::tw::level(grp, 20, [&](int k) {      // f, X, Y, Z, px, py
     if (k < 12) {
-      grp.st(S::kF + k, gload(fin, 12, k, m, lane));
+      grp.st(S::kF + k, load_coef(fin, 12, k, m, lane));
     } else if (k < 18) {
       const int64_t* c = k < 14 ? xin : k < 16 ? yin : zin;
-      grp.st(S::kPt + k - 12, gload(c, 2, k % 2, m, lane));
+      grp.st(S::kPt + k - 12, load_coef(c, 2, k % 2, m, lane));
     } else {
-      grp.st(S::kPt + k - 12, gload(k == 18 ? pxin : pyin, 1, 0, m, lane));
+      grp.st(S::kPt + k - 12, load_coef(k == 18 ? pxin : pyin, 1, 0, m, lane));
     }
   });
   gs::tw::miller_dbl(t, grp, [&](gs::tw::DblOut kind, int c, const Fw& v) {
     if (kind == gs::tw::kOutF)
-      gstore(fout, 12, c, m, lane, v);
+      store_coef(fout, 12, c, m, lane, v);
     else
-      gstore(kind == gs::tw::kOutX ? xout
+      store_coef(kind == gs::tw::kOutX ? xout
              : kind == gs::tw::kOutY ? yout : zout, 2, c, m, lane, v);
   });
 }
@@ -421,9 +413,13 @@ int gs_fq12_mul(int nl, const int64_t* a, const int64_t* b, int64_t* out,
                 int64_t m, const uint32_t* p, const uint32_t* one,
                 uint32_t n0, void* stream) {
   if (nl != N) return -1;
-  fq12_mul_kernel<<<grid_of(m), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      gs::make_field<N>(p, one, n0), a, b, out, m);
+  constexpr int G = kFq12MulGroup;
+  constexpr int bytes = kGroupLanes * lane_words(kFq12MulSlots) * 4;
+  static const cudaError_t attr = allow_smem(fq12_mul_kernel<G>, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  fq12_mul_kernel<G><<<group_grid_of(m), kGroupLanes * G, bytes,
+                       static_cast<cudaStream_t>(stream)>>>(
+      gs::tw::make_tower_w(p, one, n0, nullptr), a, b, out, m);
   return static_cast<int>(cudaGetLastError());
 }
 

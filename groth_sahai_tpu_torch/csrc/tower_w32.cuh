@@ -1,6 +1,6 @@
-// The Fq2 / Fq6 / Fq12 formulas of the kernels cyc_pow and miller_iter_dbl
-// on packed 32-bit words (field_w32.cuh), worked by a group of G threads per
-// lane.
+// The Fq2 / Fq6 / Fq12 formulas of the kernels fq12_mul, cyc_pow and
+// miller_iter_dbl on packed 32-bit words (field_w32.cuh), worked by a group
+// of G threads per lane.
 //
 // The formulas, k p offsets and post-reductions are tower.cuh's (f2_mul,
 // f6_mul, f12_mul_raw, post_red, f2_sqr, cyc_sqr_red with comb_a and
@@ -11,15 +11,9 @@
 // every Montgomery product is field_w32.cuh's out-of-line `mont`, operands
 // and result in registers. mul12 is mul_small(., 12).
 //
-// What changes is who computes what, and where values live. One lane is
-// worked by the G threads of a Group, inside one warp. The lane's values
-// live in the group's shared memory as Fq slots of 13 words. A formula is
-// cut into levels: the Montgomery products of a level are independent, each
-// a task that one thread takes whole (it forms the operand sums, calls
-// mont, stores the result to a slot); the tasks of a level go round-robin to
-// the group's threads, and __syncwarp of the group's mask separates the
-// levels. A task reads only slots that earlier levels wrote, and no two
-// tasks of a level write one slot. Exact adds and k p subtractions are
+// What changes is who computes what, and where values live: a group of G
+// threads works each lane, level by level, over the lane's Fq slots in
+// shared memory (group_w32.cuh). Exact adds and k p subtractions are
 // folded into the tasks that need them (a thread recomputes a cheap
 // combination rather than wait a level for it).
 //
@@ -55,12 +49,16 @@
 #include <cstdint>
 
 #include "field_w32.cuh"
+#include "group_w32.cuh"
 
 namespace gs {
 namespace tw {
 
 using w32::Fw;
+using w32::Group;
+using w32::group_of;
 using w32::kWords;
+using w32::level;
 
 // The k of the tower's k p offsets.
 enum Kp { K2, K4, K6, K8, K12, K18, K24, K42, K144, kKinds };
@@ -82,71 +80,20 @@ inline TowerW make_tower_w(const uint32_t* p16, const uint32_t* one16,
   t.f = w32::make_field_w(p16, one16, n0);
   uint32_t p[kWords];
   w32::pack_host(p16, p);
-  for (int i = 0; i < kKinds; ++i) {
-    uint64_t c = 0;
-    for (int j = 0; j < kWords; ++j) {
-      c += static_cast<uint64_t>(p[j]) * kKp[i];
-      t.kp[i][j] = static_cast<uint32_t>(c);
-      c >>= 32;
-    }
-  }
+  w32::kp_words(p, kKp, kKinds, t.kp);
   for (int j = 0; j < kWords; ++j) t.tinv[j] = 0;
   if (tinv16) w32::pack_host(tinv16, t.tinv);
   return t;
 }
 
-// ------------------------------------------------------------- the group
-
-// The G threads of one lane: the lane's slots (Fq slot i at words
-// s[13 i .. 13 i + 12]), this thread's rank g in the group, and the group's
-// lanes of the warp for __syncwarp.
-template <int G>
-struct Group {
-  uint32_t* s;
-  int g;
-  unsigned mask;
-
-  __device__ __forceinline__ Fw ld(int slot) const {
-    Fw v;
-#pragma unroll
-    for (int k = 0; k < kWords; ++k) v.w[k] = s[slot * kWords + k];
-    return v;
-  }
-  __device__ __forceinline__ void st(int slot, const Fw& v) const {
-#pragma unroll
-    for (int k = 0; k < kWords; ++k) s[slot * kWords + k] = v.w[k];
-  }
-  __device__ __forceinline__ void sync() const { __syncwarp(mask); }
-};
-
-// Thread threadIdx.x of a block whose lanes take G consecutive threads
-// each; `lane_words` is the block's shared memory of its lane.
-template <int G>
-__device__ __forceinline__ Group<G> group_of(uint32_t* lane_words) {
-  static_assert(G <= 32 && 32 % G == 0, "a group lies inside one warp");
-  const unsigned x = threadIdx.x;
-  const unsigned mask = G == 32 ? 0xFFFFFFFFu
-                                : ((1u << G) - 1) << (x % 32 / G * G);
-  return Group<G>{lane_words, static_cast<int>(x % G), mask};
-}
-
-// One level: tasks 0 .. n - 1 round-robin over the group, then the group's
-// barrier.
-template <int G, class Task>
-__device__ __forceinline__ void level(const Group<G>& grp, int n, Task task) {
-#pragma unroll 1
-  for (int k = grp.g; k < n; k += G) task(k);
-  grp.sync();
-}
-
 // ------------------------------------------------- exact adds, k p offsets
 
 using w32::add;
+using w32::dbl;
 using w32::mul12;
 using w32::sub;
-
-__device__ __forceinline__ Fw dbl(const Fw& a) { return add(a, a); }
-__device__ __forceinline__ Fw triple(const Fw& a) { return add(dbl(a), a); }
+using w32::triple;
+using w32::words_of;
 
 // a - b + k p, formed as (a + k p) - b; bound(b) <= k p.
 __device__ __forceinline__ Fw subk(const TowerW& t, const Fw& a, const Fw& b,
@@ -160,13 +107,6 @@ __device__ __forceinline__ Fw negk(const TowerW& t, const Fw& a, Kp k) {
 #pragma unroll
   for (int j = 0; j < kWords; ++j) c.w[j] = t.kp[k][j];
   return sub(c, a);
-}
-
-__device__ __forceinline__ Fw words_of(const uint32_t (&w)[kWords]) {
-  Fw c;
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) c.w[j] = w[j];
-  return c;
 }
 
 // a times R mod p (Montgomery): < 2p.

@@ -1,10 +1,11 @@
 """Hand-written Hopper kernels of the Fq12 tower, with their plain versions.
 
 The port of eight kernels of ``groth_sahai_tpu/ops/pallas_tower.py``, written
-in CUDA C++ for ``sm_90a`` in ``csrc/tower_kernels.cu``: six over the
+in CUDA C++ for ``sm_90a`` in ``csrc/tower_kernels.cu``: five over the
 in-thread tower formulas ``csrc/tower.cuh`` (on ``csrc/field.cuh``), and
-``cyc_pow`` and ``miller_iter_dbl`` over ``csrc/tower_w32.cuh`` (packed
-32-bit words, ``csrc/field_w32.cuh``, a group of threads per lane):
+``fq12_mul``, ``cyc_pow`` and ``miller_iter_dbl`` over
+``csrc/tower_w32.cuh`` (packed 32-bit words, ``csrc/field_w32.cuh``, a
+group of threads per lane, ``csrc/group_w32.cuh``):
 
   ===============  =================================  ========================
   wrapper          replaces (TPU kernel)              computes
@@ -35,10 +36,12 @@ What bounds them on the H100: an Fq12 product is 66 Montgomery products
 per lane against 7.2 KB of int64 limbs moved, so every kernel here is
 bound by the multiplier; at the few thousand lanes of their calls (four
 for the verifier's final exponentiation), one thread per lane leaves most
-of the card idle and each thread's dependent chain sets the time. cyc_pow
-and miller_iter_dbl shorten that chain: each lane is worked by a group of
-32 and 8 threads, which take the independent products of each level of
-the formulas side by side, with the lane's values in shared memory.
+of the card idle and each thread's dependent chain sets the time.
+fq12_mul, cyc_pow and miller_iter_dbl shorten that chain: each lane is
+worked by a group of threads (fq12_mul 16, cyc_pow 32, miller_iter_dbl
+8), which take the independent products of
+each level of the formulas side by side, with the lane's values in
+shared memory.
 
 Dispatch rule: a CPU tensor runs the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its launches in
@@ -61,7 +64,7 @@ _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
 LIBRARY = KernelLibrary("gs_tower", "tower_kernels.cu",
                         ["tower.cuh", "field.cuh", "tower_w32.cuh",
-                         "field_w32.cuh"], {
+                         "group_w32.cuh", "field_w32.cuh"], {
     "gs_fq12_mul": [_I, _P, _P, _P, _I64, _P, _P, _U32, _P],
     "gs_cyc_pow": [_I, _P, ctypes.c_uint64, _P, _I64, _P, _P, _U32, _P],
     "gs_cyc_sqr": [_I, _P, _P, _I64, _P, _P, _U32, _P],

@@ -1,8 +1,10 @@
 """Design variants of the packed-word curve kernels, timed side by side.
 
     python3 -m groth_sahai_tpu_torch.utils.curve_variants
+    python3 -m groth_sahai_tpu_torch.utils.curve_variants --groups [--against DIR]
 
-Needs one NVIDIA H100 (sm_90a) and nvcc. Builds `csrc/curve_kernels.cu` as
+Needs one NVIDIA H100 (sm_90a) and nvcc. With no option, builds
+`csrc/curve_kernels.cu` as
 it stands and in variants made by editing a copy of its sources, one nvcc
 each, all at once, into `groth_sahai_tpu_torch/build/variants/`:
 
@@ -25,10 +27,25 @@ widest launches) by CUDA events, each variant's outputs against the
 committed design's, in the order as built, variants, as built. Prints the
 card's name and power limit. The committed design is held against the
 plain versions by `chip_smoke.py`.
+
+With `--groups`, builds the curve library as it stands and with the
+threads a lane of cdbl_n_add (`kCdblGroupG1`, `kCdblGroupG2`) both set to
+each of 4, 8, 16 and 32, into `groth_sahai_tpu_torch/build/cdbl_variants/`,
+prints ptxas's report of the kernel and of `mont` and their SASS, and
+times cdbl_n_add at its four path shapes (G2, n = 8 over 668 lanes:
+verify-ppe-334's window combination; G2 and G1, n = 4 over 1336 and 4096
+lanes: the scalar multiplications of the commits and of
+scalar-mul-g1-4096; G1, n = 13 over one lane: msm-g1-65536's) by CUDA
+events, in the order as built, variants, as built, each variant's outputs
+against the committed build's, the committed build's against the plain
+version. `--against DIR` times the curve library of another checkout's
+kernel sources (`groth_sahai_tpu_torch/csrc`, the same C entry points) as
+one more variant.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import ctypes
 import pathlib
@@ -40,10 +57,17 @@ import torch
 
 from ..ops import cuda_build
 from ..ops import cuda_curve as CC
-from ..ops.cuda_build import host_words
+from ..ops.cuda_build import check, host_words
 from ..ops.fp import FQ
 
 OUT = cuda_build.BUILD_DIR / "variants"
+GROUP_OUT = cuda_build.BUILD_DIR / "cdbl_variants"
+GROUPS = (4, 8, 16, 32)
+CDBL_SASS = (r"(cdbl_n_add)_kernelILi([12])ELi(\d+)E",
+             "{} G{} at {} threads a lane")
+CDBL_PTXAS = r"cdbl_n_add_kernel|mont"
+_CDBL_CONST = re.compile(r"(constexpr int (kCdblGroupG1|kCdblGroupG2) = )"
+                         r"(\d+);")
 
 ROW_CHAINS = r'''
 __device__ __forceinline__ uint32_t mad_hi_cc(uint32_t a, uint32_t b,
@@ -172,6 +196,19 @@ def build_variants(source: str, edits: dict, out: pathlib.Path,
     return built
 
 
+def group_variants(source: str, const: re.Pattern, built: dict) -> dict:
+    """name -> {file: transform}: as built, then one variant for each G of
+    GROUPS that sets every group-size constant of `source` (the pattern
+    `const`, the size its third group) to G, unless `built` (the committed
+    sizes by name) is that G already."""
+    out = {"as built": {}}
+    for g in GROUPS:
+        if set(built.values()) != {g}:
+            out[f"G={g}"] = {source: lambda s, g=g: const.sub(
+                lambda m: f"{m.group(1)}{g};", s)}
+    return out
+
+
 def build(names):
     """The curve library in each variant of `names`."""
     return build_variants(
@@ -253,8 +290,11 @@ def ptxas_report(log: str, pattern: str) -> list:
     for f in funcs:
         hit = re.search(pattern, f["name"])
         if hit and "frame" in f:
-            arg = re.match(r"ILi(\d+)E", f["name"][hit.end():])
-            line = (hit.group(0) + (f"<{arg.group(1)}>" if arg else "")
+            rest = f["name"][hit.end():]
+            targs = rest[:rest.find("Ev")] if rest.startswith("I") else ""
+            args = [a or b for a, b in re.findall(r"Li(\d+)E|(Fq2?A)",
+                                                    targs)]
+            line = (hit.group(0) + (f"<{','.join(args)}>" if args else "")
                     + f": {f['frame'][0]} B frame, spills "
                     f"{f['frame'][1]}/{f['frame'][2]} B")
             out.append(line + (f", {f['regs']} registers"
@@ -295,13 +335,100 @@ def _events_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def card_line() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+# cdbl_n_add's path shapes: (curve name, n_dbl, lanes)
+CDBL_SHAPES = (("G2", 8, 668), ("G2", 4, 1336), ("G1", 4, 4096),
+               ("G1", 13, 1))
+
+
+def cdbl_cases(gen):
+    """(name, fn(lib) -> outputs, plain outputs) at CDBL_SHAPES: seeded
+    coordinates < 4p."""
+    from ..ops.curve import G1, G2
+    args = (host_words(FQ, FQ.p), host_words(FQ, FQ.r_mod_p), FQ.n0,
+            torch.cuda.current_stream().cuda_stream)
+    out = []
+    for cname, n, lanes in CDBL_SHAPES:
+        curve = G2 if cname == "G2" else G1
+        lead = (2,) if curve.ns == 2 else ()
+        pts = [_limbs(lead + (lanes,), 4, gen) for _ in range(6)]
+
+        def call(lib, pts=pts, n=n, lanes=lanes, ns=curve.ns):
+            outs = [torch.empty_like(pts[0]) for _ in range(3)]
+            check(lib.gs_cdbl_n_add(FQ.n, ns, n,
+                                    *(t.data_ptr() for t in pts + outs),
+                                    lanes, *args), "cdbl_n_add", FQ.n)
+            return outs
+
+        def plain(pts=pts, n=n, curve=curve):
+            return list(CC.cdbl_n_add_plain(tuple(pts[:3]), n,
+                                            tuple(pts[3:]), curve))
+        out.append((f"cdbl_n_add {cname}, n = {n}, {lanes} lanes", call,
+                    plain))
+    return out
+
+
+def groups_main(against) -> int:
+    """cdbl_n_add's group sizes (and another checkout's kernels) timed."""
+    card = card_line()
+    print(card, flush=True)
+    text = (cuda_build.CSRC / "curve_kernels.cu").read_text()
+    built_g = {m.group(2): int(m.group(3))
+               for m in _CDBL_CONST.finditer(text)}
+    print(f"as built: {built_g}", flush=True)
+    edits = group_variants("curve_kernels.cu", _CDBL_CONST, built_g)
+    sources = {}
+    if against:
+        edits["against"] = {}
+        sources["against"] = against.resolve()
+    built = build_variants("curve_kernels.cu", edits, GROUP_OUT, sources)
+    for name, (lib, log) in built.items():
+        for line in (sass_report(lib, CDBL_SASS)
+                     + ptxas_report(log, CDBL_PTXAS)):
+            print(f"[{name}] {line}", flush=True)
+    libs = {name: _bind(lib) for name, (lib, _) in built.items()}
+    gen = torch.Generator("cuda").manual_seed(20261018)
+    order = list(libs) + ["as built"]
+    for what, fn, plain in cdbl_cases(gen):
+        want = fn(libs["as built"])
+        exact = all(torch.equal(a, b) for a, b in zip(want, plain()))
+        print(f"[plain] {what}: as built "
+              f"{'equals' if exact else 'DIFFERS FROM'} the plain version",
+              flush=True)
+        if not exact:
+            return 1
+        for name in order:
+            same = all(torch.equal(a, b) for a, b in zip(fn(libs[name]),
+                                                         want))
+            ms = _events_ms(lambda: fn(libs[name]), 20)
+            print(f"[time] {what}: {name}: {ms:.4f} ms a launch, outputs "
+                  f"{'equal' if same else 'DIFFERENT'}", flush=True)
+            if not same:
+                return 1
+    print(card, flush=True)
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--groups", action="store_true",
+                    help="time cdbl_n_add's threads a lane, not mont's "
+                         "designs")
+    ap.add_argument("--against", type=pathlib.Path, default=None,
+                    help="with --groups: another checkout's csrc/ to time "
+                         "beside these")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("curve_variants: needs a CUDA card", file=sys.stderr)
         return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    if opts.groups:
+        return groups_main(opts.against)
+    card = card_line()
     print(card, flush=True)
     built = build(list(VARIANTS))
     for name, (lib, log) in built.items():

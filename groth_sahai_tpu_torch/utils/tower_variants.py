@@ -3,17 +3,20 @@
     python3 -m groth_sahai_tpu_torch.utils.tower_variants [--against DIR]
 
 Needs one NVIDIA H100 (sm_90a) and nvcc. Builds `csrc/tower_kernels.cu` as
-it stands and with the threads a lane of cyc_pow and miller_iter_dbl
-(`kCycPowGroup`, `kDblGroup`) set to each of 4, 8, 16 and 32 in copies of
-its sources, one nvcc each, all at once, into
+it stands and with the threads a lane of fq12_mul, cyc_pow and
+miller_iter_dbl (`kFq12MulGroup`, `kCycPowGroup`, `kDblGroup`) all set
+to each of 4, 8, 16 and 32 in copies of its sources,
+one nvcc each, all at once, into
 `groth_sahai_tpu_torch/build/tower_variants/`. For each it prints ptxas's
-report of the two kernels and of `mont` (frame, spills, registers) and
+report of the three kernels and of `mont` (frame, spills, registers) and
 their SASS (instructions, and the mix of their Montgomery product), then
-times, by CUDA events, cyc_pow over 4 lanes
-(the verifier's final exponentiation, e = |x|) and over 4096, and
-miller_iter_dbl over 4096 lanes (the verifier's Miller loop), in the order
-as built, variants, as built, each variant's outputs against the committed
-build's; the committed build's against the plain versions. With
+times, by CUDA events, fq12_mul over 4 lanes (the final exponentiation's
+products), 256, 2048 (the first halving of verify's Miller product tree)
+and 4096 lanes, cyc_pow over 4 lanes (the verifier's final
+exponentiation, e = |x|) and over 4096, and miller_iter_dbl over 4096
+lanes (the verifier's Miller loop), in the order as built, variants, as
+built, each variant's outputs against the committed build's; the
+committed build's against the plain versions. With
 `--against DIR`, the tower library built from the kernel sources in DIR
 (another checkout's `groth_sahai_tpu_torch/csrc`, with the same C entry
 points) is timed as one more variant. Inputs are seeded, at the kernels'
@@ -25,7 +28,6 @@ from __future__ import annotations
 import argparse
 import pathlib
 import re
-import subprocess
 import sys
 
 import torch
@@ -36,32 +38,27 @@ from ..ops import cuda_tower as CT
 from ..ops.cuda_build import check, host_words
 from ..ops.fp import FQ
 from .curve_variants import _bind, _events_ms, _limbs, build_variants, \
-    ptxas_report, sass_report
+    card_line, group_variants, ptxas_report, sass_report
 
 OUT = cuda_build.BUILD_DIR / "tower_variants"
-GROUPS = (4, 8, 16, 32)
-TOWER_SASS = (r"(cyc_pow|miller_iter_dbl)_kernelILi(\d+)E",
+TOWER_SASS = (r"(fq12_mul|cyc_pow|miller_iter_dbl)_kernelILi(\d+)E",
               "{} at {} threads a lane")
-# ptxas lines: the two kernels, and the Montgomery product they call
-PTXAS = r"cyc_pow_kernel|miller_iter_dbl_kernel|mont"
-_CONST = re.compile(r"(constexpr int (kCycPowGroup|kDblGroup) = )(\d+);")
+# ptxas lines: the three kernels, and the Montgomery product they call
+PTXAS = r"fq12_mul_kernel|cyc_pow_kernel|miller_iter_dbl_kernel|mont"
+_CONST = re.compile(r"(constexpr int (kFq12MulGroup|kCycPowGroup|"
+                    r"kDblGroup) = )(\d+);")
 
 
 def built_groups() -> dict:
-    """The committed group sizes: {"kCycPowGroup": G, "kDblGroup": G}."""
+    """The committed group sizes by constant name."""
     text = (cuda_build.CSRC / "tower_kernels.cu").read_text()
     return {m.group(2): int(m.group(3)) for m in _CONST.finditer(text)}
 
 
 def variants() -> dict:
-    """name -> {file: transform}: as built, then every G of GROUPS for both
-    kernels that is not the committed pair."""
-    out = {"as built": {}}
-    for g in GROUPS:
-        if set(built_groups().values()) != {g}:
-            out[f"G={g}"] = {"tower_kernels.cu": lambda s, g=g: _CONST.sub(
-                lambda m: f"{m.group(1)}{g};", s)}
-    return out
+    """name -> {file: transform}: as built, then every G of GROUPS for all
+    three kernels that is not the committed choice."""
+    return group_variants("tower_kernels.cu", _CONST, built_groups())
 
 
 def cases(gen):
@@ -69,6 +66,17 @@ def cases(gen):
     args = (host_words(FQ, FQ.p), host_words(FQ, FQ.r_mod_p))
     stream = torch.cuda.current_stream().cuda_stream
     out = []
+    for lanes in (4, 256, 2048, 4096):
+        a, b = (_limbs((12, lanes), 32, gen) for _ in range(2))
+
+        def mul_call(lib, a=a, b=b, lanes=lanes):
+            o = torch.empty_like(a)
+            check(lib.gs_fq12_mul(FQ.n, a.data_ptr(), b.data_ptr(),
+                                  o.data_ptr(), lanes, *args, FQ.n0, stream),
+                  "fq12_mul", FQ.n)
+            return [o]
+        out.append((f"fq12_mul, {lanes} lanes", lanes, mul_call,
+                    lambda a=a, b=b: [CT.fq12_mul_plain(a, b)]))
     for lanes in (4, 4096):
         a = _limbs((12, lanes), 2, gen)
 
@@ -109,9 +117,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("tower_variants: needs a CUDA card", file=sys.stderr)
         return 2
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
+    card = card_line()
     print(card, flush=True)
     print(f"as built: {built_groups()}", flush=True)
     edits, sources = variants(), {}
