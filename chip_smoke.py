@@ -10,19 +10,22 @@ Phases (any failure exits non-zero and prints no result line):
                 build time, the compiler's resource report, the card's
                 name and power limit, and from cuobjdump the instructions of
                 the packed-word kernels (cadd, cmsm_row_scan, cdbl_n_add,
-                fq12_mul, cyc_pow, miller_iter_dbl) and of their Montgomery
-                product, with the grouped kernels' frames, spills and
-                registers;
+                fq12_mul, cyc_pow, miller_iter_dbl, miller_iter_add,
+                pow_const) and of their Montgomery product, with the
+                grouped kernels' frames, spills and registers;
   2. kernels -- each of the sixteen kernels against its plain PyTorch version on
                 the card, bit-exact, at the paths' main shapes: the field
                 kernels at Fq width over the pairing's stacks (16384,
                 442368, 98304 and 8192 lanes) and at Fr width over 8192
-                lanes; fq12_mul over 4096, 2048 and 4 lanes and the ragged
-                1, 3 and 1000, cyc_pow over 4096
-                and 4 for the final exponentiation's three exponents and
-                over the ragged 1, 3 and 1000 lanes; the Miller iterations
-                and cyc_sqr over 4096, miller_iter_dbl also over 1, 3, 1000
-                and 4099 lanes, f12_pow_dyn over 4096 and 1024; cmadd and
+                lanes, pow_const also at Fq width over 4 and 21 lanes
+                (verify's inverses) and the ragged 1, 3 and 1001;
+                fq12_mul over 4096, 2048 and 4 lanes and the ragged 1, 3
+                and 1000, cyc_pow over 4096 and 4 for the final
+                exponentiation's three exponents and over the ragged 1, 3
+                and 1000 lanes; the Miller iterations and cyc_sqr over
+                4096, the Miller iterations also over 1, 3, 1000 and 4099
+                lanes and miller_iter_add over 128 (gs-e2e's), f12_pow_dyn
+                over 4096 and 1024; cmadd and
                 cdbl_n_add (n = 4) on G1 over 4096, 1336 and 4 lanes and on
                 G2 over 1336 and 4, cdbl_n_add on G2 with n = 8 over 668
                 (verify-ppe-334's window combination), on G1 with n = 13
@@ -525,6 +528,8 @@ GAMMA_D_SHIFT = ("G2", 2 * PPE_M, 8)
 MSM_G1_SHIFT = ("G1", 1, 13)
 ALSO_TIMED = {"fq12_mul": [("Fq", 4), ("Fq", 2048)],
               "cyc_pow": [("Fq", 4)],
+              "pow_const": [("Fq", 4), ("Fq", 21)],
+              "miller_iter_add": [("Fq", 128)],
               "cmadd": [("G2", COMMIT_LANES), ("G1", COMMIT_LANES)],
               "cdbl_n_add": [("G2", COMMIT_LANES, 4), ("G1", COMMIT_LANES, 4),
                              GAMMA_D_SHIFT, MSM_G1_SHIFT]}
@@ -723,9 +728,14 @@ def phase2_shapes():
                for m in [FUSED] + [m for _, m in ALSO_TIMED["cyc_pow"]]
                for e in (v_abs // 3, v_abs, abs(C.X))]
     shapes += [("cyc_pow", FQ, m, abs(C.X)) for m in RAGGED]
+    shapes += [("pow_const", FQ, m, FQ.p - 2)
+               for m in [m for _, m in ALSO_TIMED["pow_const"]]
+               + [1, 3, 1001]]
     shapes += [(name, FQ, FUSED, None) for name in ("cyc_sqr",) + MILLER]
-    shapes += [("miller_iter_dbl", FQ, m, None)
+    shapes += [(name, FQ, m, None) for name in MILLER
                for m in RAGGED + (FUSED + 3,)]
+    shapes += [("miller_iter_add", FQ, m, None)
+               for _, m in ALSO_TIMED["miller_iter_add"]]
     shapes += [("f12_pow_dyn", FQ, m, None) for m in (FUSED, EQUATIONS)]
     from groth_sahai_tpu_torch.ops.curve import G1, G2
     for name in CURVE:
@@ -1992,12 +2002,17 @@ def main() -> int:
               f"{card}", flush=True)
         from groth_sahai_tpu_torch.utils.curve_variants import (
             CDBL_PTXAS, CDBL_SASS, ptxas_report, sass_report)
+        from groth_sahai_tpu_torch.utils.fp_variants import FP_SASS
+        from groth_sahai_tpu_torch.utils.fp_variants import PTXAS as FP_PTXAS
         from groth_sahai_tpu_torch.utils.tower_variants import PTXAS, TOWER_SASS
         tower, curve = cuda_tower.LIBRARY.path(), cuda_curve.LIBRARY.path()
+        fp = cuda_fp.LIBRARY.path()
         for line in (sass_report(curve) + sass_report(curve, CDBL_SASS)
-                     + sass_report(tower, TOWER_SASS)):
+                     + sass_report(tower, TOWER_SASS)
+                     + sass_report(fp, FP_SASS)):
             print(f"[sass] {line}", flush=True)
-        for lib, pattern in ((curve, CDBL_PTXAS), (tower, PTXAS)):
+        for lib, pattern in ((curve, CDBL_PTXAS), (tower, PTXAS),
+                             (fp, FP_PTXAS)):
             for line in ptxas_report(lib.with_suffix(".log").read_text(),
                                      pattern):
                 print(f"[ptxas] {line}", flush=True)

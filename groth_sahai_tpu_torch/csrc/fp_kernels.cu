@@ -6,18 +6,34 @@
 //   gs_redc      <- pallas_fp.redc      (_redc_kernel)
 //   gs_pow_const <- pallas_fp.pow_const (_pow_chain_kernel)
 //
-// Work split: one thread per lane (batch element), its limbs in registers.
-// The batch is flattened to M lanes; a limb-major int64 array [rows, M]
-// (the port's tensor layout) puts limb i of lane l at i*M + l, so the
-// threads of a warp read neighbouring words. The grid covers M with a
+// Work split: mont_mul, mul_wide and redc (and pow_const over Fr) run one
+// thread per lane (batch element), its 16-bit limbs in registers
+// (field.cuh). The batch is flattened to M lanes; a limb-major int64 array
+// [rows, M] (the port's tensor layout) puts limb i of lane l at i*M + l, so
+// the threads of a warp read neighbouring words. The grid covers M with a
 // masked tail; nothing is carried between blocks.
 //
 // What bounds them on the H100: each lane does 2N^2 (mont_mul), N^2
-// (mul_wide), N^2 (redc) or 2N^2 per exponent bit (pow_const) 32-bit
-// multiply-adds and moves 8 bytes per limb. Over the 8192-lane batches of
-// the unfused pairing path a launch moves a few MB, so these kernels are
-// bound by launch count and device-memory bytes, not by the multiplier;
-// pow_const (2 x 381 products per lane) is the one bound by operations.
+// (mul_wide) or N^2 (redc) 32-bit multiply-adds and moves 8 bytes per
+// limb. Over the 8192-lane batches of the unfused pairing path a launch
+// moves a few MB, so these three are bound by launch count and
+// device-memory bytes, not by the multiplier.
+//
+// pow_const over Fq is a Fermat chain (e = p - 2: 381 squares and 229
+// products, 610 dependent Montgomery products a lane), launched over 2 to
+// 8192 lanes: over verify's 4 and 21 lanes nothing else runs on the card,
+// and even 8192 lanes fill a fraction of it, so what bounds it is the
+// latency of one product times 610, not the multiplier (its bound by
+// operations is 12x below the one-thread kernel's time). Its design cuts
+// that latency (field_split_w32.cuh): an Fq value is 13 packed 32-bit
+// words at the same R = 2^400, and each product is split over a group of
+// kPowGroup threads of one warp, each owning 16 / kPowGroup columns of the
+// running sum in carry-save form; a CIOS step costs each thread a few
+// multiply-adds and the group one shuffle (the broadcast of m), and the
+// carries resolve once per product (three exchanges and two ballots).
+// kPowGroup is the fastest of 1 (field_w32.cuh's one-thread `mont`), 4, 8
+// and 16 at the paths' shapes (utils/fp_variants.py). Fr's pow_const, which
+// no path launches, keeps the one-thread 16-bit body.
 //
 // Plain C interface for ctypes. Each entry point returns cudaGetLastError()
 // after its launch (0 = success), or -1 for a limb count with no
@@ -27,6 +43,9 @@
 #include <cstdint>
 
 #include "field.cuh"
+#include "field_split_w32.cuh"
+#include "field_w32.cuh"
+#include "group_w32.cuh"
 
 namespace {
 
@@ -85,7 +104,8 @@ redc_kernel(gs::Field<N> f, const int64_t* t, int64_t* out, int64_t m) {
 // a^e for a fixed exponent: MSB-first square, then multiply on set bits,
 // from R mod p (the sequence of pallas_fp._pow_chain_kernel). The bit is the
 // same for every thread, so the branch does not diverge; skipping the
-// multiply on a clear bit gives the limbs the select would keep.
+// multiply on a clear bit gives the limbs the select would keep. One thread
+// a lane over 16-bit limbs: Fr's body.
 template <int N>
 __global__ void __launch_bounds__(kThreads)
 pow_const_kernel(gs::Field<N> f, const int64_t* a, const int64_t* bits,
@@ -106,6 +126,58 @@ pow_const_kernel(gs::Field<N> f, const int64_t* a, const int64_t* bits,
     }
   }
   store<N>(out, m, lane, acc);
+}
+
+// Threads a lane of Fq's pow_const (1: field_w32.cuh's one-thread `mont`;
+// 2 to 16: the product split over the group, field_split_w32.cuh), and
+// threads a block.
+constexpr int kPowGroup = 8;
+constexpr int kPowThreads = 64;
+
+using gs::w32::Fw;
+using gs::w32::load_coef;
+using gs::w32::store_coef;
+
+// Fq's pow_const on packed words (an Fq batch [25, M] is load_coef's and
+// store_coef's S = 1). G = 1: a thread a lane, each product field_w32.cuh's
+// `mont`. G > 1: a group of G consecutive threads a lane, every product
+// split over it (field_split_w32.cuh): the group holds the accumulator as
+// its own words and, for the next square, whole in every thread; a as
+// whole words. The product takes every thread of the warp, so a ragged
+// block's spare groups work the last lane and store nothing.
+template <int G>
+__global__ void __launch_bounds__(kPowThreads)
+fq_pow_const_kernel(const __grid_constant__ gs::w32::FieldW f,
+                    const int64_t* a, const int64_t* bits, int nbits,
+                    int64_t* out, int64_t m) {
+  const int64_t at =
+      (static_cast<int64_t>(blockIdx.x) * kPowThreads + threadIdx.x) / G;
+  const int64_t lane = at < m ? at : m - 1;
+  const Fw x = load_coef(a, 1, 0, m, lane);
+  Fw acc = gs::w32::words_of(f.one);
+  if constexpr (G == 1) {
+    for (int i = 0; i < nbits; ++i) {
+      const Fw t = gs::w32::mont(f, acc, acc);
+      acc = bits[i] ? gs::w32::mont(f, t, x) : t;
+    }
+  } else {
+    using S = gs::w32::Split<G>;
+    const S s(f);
+    uint32_t own[S::K], t[S::K];
+    s.own(f.one, own);
+    for (int i = 0; i < nbits; ++i) {
+      s.mont(f, acc.w, own, t);
+      if (bits[i]) {
+        s.mont(f, x.w, t, own);
+      } else {
+#pragma unroll
+        for (int k = 0; k < S::K; ++k) own[k] = t[k];
+      }
+      s.full(own, acc.w);
+    }
+    if (s.g != 0) return;
+  }
+  if (at < m) store_coef(out, 1, 0, m, lane, acc);
 }
 
 unsigned grid_of(int64_t m) {
@@ -136,12 +208,22 @@ int launch_redc(const int64_t* t, int64_t* out, int64_t m, const uint32_t* p,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int N>
-int launch_pow_const(const int64_t* a, const int64_t* bits, int nbits,
-                     int64_t* out, int64_t m, const uint32_t* p,
-                     const uint32_t* one, uint32_t n0, cudaStream_t s) {
-  pow_const_kernel<N><<<grid_of(m), kThreads, 0, s>>>(
-      gs::make_field<N>(p, one, n0), a, bits, nbits, out, m);
+int launch_pow_fr(const int64_t* a, const int64_t* bits, int nbits,
+                  int64_t* out, int64_t m, const uint32_t* p,
+                  const uint32_t* one, uint32_t n0, cudaStream_t s) {
+  pow_const_kernel<17><<<grid_of(m), kThreads, 0, s>>>(
+      gs::make_field<17>(p, one, n0), a, bits, nbits, out, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_pow_fq(const int64_t* a, const int64_t* bits, int nbits,
+                  int64_t* out, int64_t m, const uint32_t* p,
+                  const uint32_t* one, uint32_t n0, cudaStream_t s) {
+  constexpr int G = kPowGroup;
+  const auto grid =
+      static_cast<unsigned>((m * G + kPowThreads - 1) / kPowThreads);
+  fq_pow_const_kernel<G><<<grid, kPowThreads, 0, s>>>(
+      gs::w32::make_field_w(p, one, n0), a, bits, nbits, out, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -185,8 +267,8 @@ int gs_pow_const(int nl, const int64_t* a, const int64_t* bits, int nbits,
                  const uint32_t* one, uint32_t n0, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   switch (nl) {
-    case 25: return launch_pow_const<25>(a, bits, nbits, out, m, p, one, n0, s);
-    case 17: return launch_pow_const<17>(a, bits, nbits, out, m, p, one, n0, s);
+    case 25: return launch_pow_fq(a, bits, nbits, out, m, p, one, n0, s);
+    case 17: return launch_pow_fr(a, bits, nbits, out, m, p, one, n0, s);
     default: return -1;
   }
 }

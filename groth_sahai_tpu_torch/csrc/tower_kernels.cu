@@ -21,7 +21,7 @@
 //
 // Work split: an Fq12 batch is int64 [25, 12, M] (limb i of coefficient c
 // of lane l at (12 i + c) M + l), an Fq2 batch [25, 2, M], an Fq batch
-// [25, M], Fr scalars [17, M]. Five kernels run one thread per lane, as in
+// [25, M], Fr scalars [17, M]. Four kernels run one thread per lane, as in
 // fp_kernels.cu, in blocks of 32 threads that spread the few thousand lanes
 // of these calls over all 132 SMs.
 //
@@ -35,9 +35,9 @@
 // batches the real limit is the latency of one thread's long chain of
 // products, each about 5.5 us.
 //
-// fq12_mul, cyc_pow and miller_iter_dbl, the three that lose the most
-// time on the verifier's path, are designed for that limit (tower_w32.cuh
-// over group_w32.cuh):
+// fq12_mul, cyc_pow, miller_iter_dbl and miller_iter_add, the four that
+// lose the most time on the verifier's path, are designed for that limit
+// (tower_w32.cuh over group_w32.cuh):
 //   * an Fq value is 13 packed 32-bit words at the same R = 2^400, and
 //     every product is field_w32.cuh's out-of-line `mont` with its
 //     operands and result in registers, so the limbs at the boundary do
@@ -46,21 +46,24 @@
 //     independent Montgomery products of each level of a formula go
 //     round-robin to the group's threads, levels separated by __syncwarp
 //     of the group, so a lane's chain of products shrinks from 2,316
-//     (cyc_pow, e = |x|) and 176 (a doubling iteration) to the levels'
-//     rounds of products: a cyclotomic square 2 and an Fq12 product 3 at
-//     cyc_pow's G = 32 (146 for e = |x|), a doubling iteration 25 at
-//     G = 8, an Fq12 product 5 at fq12_mul's G = 16.
+//     (cyc_pow, e = |x|), 176 (a doubling iteration) and 126 (an addition
+//     iteration) to the levels' rounds of products: a cyclotomic square 2
+//     and an Fq12 product 3 at cyc_pow's G = 32 (146 for e = |x|), a
+//     doubling iteration 25 and an addition iteration 17 at G = 8, an Fq12
+//     product 5 at fq12_mul's G = 16.
 //     G is the fastest of 4, 8, 16 and 32 for each kernel on the paths'
 //     shapes (utils/tower_variants.py): the verifier's cyc_pow runs over 4
 //     lanes, where nothing else is on the card and only a shorter chain
 //     helps; its Miller loop over 4096 lanes, where G = 8 fills the card
-//     in one wave; fq12_mul runs over both (the Miller product tree from
+//     in one wave (G = 16 gains 1.25x for the addition iteration over the
+//     32 to 128 lanes of the prove paths, short of the 1.3x that would
+//     earn a lane rule); fq12_mul runs over both (the Miller product tree from
 //     2048 lanes down to 4, the final exponentiation's products over 4),
 //     and G = 16 comes within 1.33x of the best G at each width;
 //   * the lane's values (its Fq12 values, R, the leaves and Karatsuba
 //     values of each level) live in the group's shared memory, 13 words
 //     an Fq slot: 108 slots for fq12_mul and cyc_pow, 133 for the
-//     doubling iteration;
+//     doubling iteration, 118 for the addition iteration;
 //     blocks of kGroupLanes lanes (55 KB of shared memory a block for the
 //     doubling iteration: four blocks an SM hold verify's 4096 lanes in
 //     one wave). Inactive lanes of a ragged block leave as whole groups.
@@ -92,6 +95,7 @@ using gs::w32::store_coef;
 constexpr int kFq12MulGroup = 16;
 constexpr int kCycPowGroup = 32;
 constexpr int kDblGroup = 8;
+constexpr int kAddGroup = 8;
 constexpr int kGroupLanes = 8;
 
 // cyc_pow's slots: a, two accumulators, the leaves, the Fq6 values;
@@ -264,35 +268,41 @@ miller_iter_dbl_kernel(const __grid_constant__ TowerW t, const int64_t* fin,
 }
 
 // One Miller addition iteration (_miller_iter_add_kernel): f <- f *
-// line_{R,Q}(P), R <- R + Q, with Q = (xq, yq) affine.
-__global__ void __launch_bounds__(kThreads)
-miller_iter_add_kernel(const __grid_constant__ FieldQ f, const int64_t* fin,
+// line_{R,Q}(P), R <- R + Q, with Q = (xq, yq) affine. f < 2p; X, Z < 2p,
+// Y < 10p; Q, P < p. Outputs: f < 2p, X3, Z3 < 2p, Y3 < 4p. A group of G
+// threads works a lane, in the levels of tower_w32.cuh miller_add.
+template <int G>
+__global__ void __launch_bounds__(kGroupLanes * G)
+miller_iter_add_kernel(const __grid_constant__ TowerW t, const int64_t* fin,
                        const int64_t* xin, const int64_t* yin,
                        const int64_t* zin, const int64_t* xqin,
                        const int64_t* yqin, const int64_t* pxin,
                        const int64_t* pyin, int64_t* fout, int64_t* xout,
                        int64_t* yout, int64_t* zout, int64_t m) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  using S = gs::tw::AddSlots;
+  extern __shared__ uint32_t smem[];
+  const int rank = threadIdx.x / G;
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kGroupLanes + rank;
   if (lane >= m) return;
-  Fp12 x, fo;
-  Fp2 X, Y, Z, xq, yq, X3, Y3, Z3, l0, l1, l2, lb, lc;
-  Fp px, py;
-  load12(fin, m, lane, x);
-  load2(xin, m, lane, X);
-  load2(yin, m, lane, Y);
-  load2(zin, m, lane, Z);
-  load2(xqin, m, lane, xq);
-  load2(yqin, m, lane, yq);
-  load1(pxin, m, lane, px);
-  load1(pyin, m, lane, py);
-  add_step_body(f, X, Y, Z, xq, yq, X3, Y3, Z3, l0, l1, l2);
-  f2_mul_fq(f, l1, px, lb);                    // < 2p
-  f2_mul_fq(f, l2, py, lc);                    // < 2p
-  sparse_line_mul(f, x, l0, lb, lc, fo);
-  store12(fout, m, lane, fo);
-  store2(xout, m, lane, X3);
-  store2(yout, m, lane, Y3);
-  store2(zout, m, lane, Z3);
+  const auto grp = gs::tw::group_of<G>(smem + rank * lane_words(S::kSlots));
+  gs::tw::level(grp, 24, [&](int k) {      // f, X, Y, Z, xq, yq, px, py
+    if (k < 12) {
+      grp.st(S::kF + k, load_coef(fin, 12, k, m, lane));
+    } else if (k < 22) {
+      const int64_t* c = k < 14 ? xin : k < 16 ? yin : k < 18 ? zin
+                       : k < 20 ? xqin : yqin;
+      grp.st(S::kPt + k - 12, load_coef(c, 2, k % 2, m, lane));
+    } else {
+      grp.st(S::kPt + k - 12, load_coef(k == 22 ? pxin : pyin, 1, 0, m, lane));
+    }
+  });
+  gs::tw::miller_add(t, grp, [&](gs::tw::DblOut kind, int c, const Fw& v) {
+    if (kind == gs::tw::kOutF)
+      store_coef(fout, 12, c, m, lane, v);
+    else
+      store_coef(kind == gs::tw::kOutX ? xout
+             : kind == gs::tw::kOutY ? yout : zout, 2, c, m, lane, v);
+  });
 }
 
 // The Miller doubling step alone (_miller_dbl_kernel): R <- 2R and the
@@ -475,10 +485,16 @@ int gs_miller_iter_add(int nl, const int64_t* fin, const int64_t* xin,
                        int64_t m, const uint32_t* p, const uint32_t* one,
                        uint32_t n0, void* stream) {
   if (nl != N) return -1;
-  miller_iter_add_kernel<<<grid_of(m), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      gs::make_field<N>(p, one, n0), fin, xin, yin, zin, xq, yq, px, py,
-      fout, xout, yout, zout, m);
+  constexpr int G = kAddGroup;
+  constexpr int bytes =
+      kGroupLanes * lane_words(gs::tw::AddSlots::kSlots) * 4;
+  static const cudaError_t attr =
+      allow_smem(miller_iter_add_kernel<G>, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  miller_iter_add_kernel<G><<<group_grid_of(m), kGroupLanes * G, bytes,
+                              static_cast<cudaStream_t>(stream)>>>(
+      gs::tw::make_tower_w(p, one, n0, nullptr), fin, xin, yin, zin, xq, yq,
+      px, py, fout, xout, yout, zout, m);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,15 +1,16 @@
-// The Fq2 / Fq6 / Fq12 formulas of the kernels fq12_mul, cyc_pow and
-// miller_iter_dbl on packed 32-bit words (field_w32.cuh), worked by a group
-// of G threads per lane.
+// The Fq2 / Fq6 / Fq12 formulas of the kernels fq12_mul, cyc_pow,
+// miller_iter_dbl and miller_iter_add on packed 32-bit words
+// (field_w32.cuh), worked by a group of G threads per lane.
 //
 // The formulas, k p offsets and post-reductions are tower.cuh's (f2_mul,
 // f6_mul, f12_mul_raw, post_red, f2_sqr, cyc_sqr_red with comb_a and
-// comb_b, dbl_step_body with f2_mulred and f2_mul_fq, f6_mul_ab, f6_mul_cv,
-// sparse_line_mul), step for step: every value is the same integer, so the
-// 16-bit limbs at the boundary equal tower.cuh's and the plain versions'
-// (ops/cuda_tower.py). An Fq value is 13 packed words at R = 2^400, and
-// every Montgomery product is field_w32.cuh's out-of-line `mont`, operands
-// and result in registers. mul12 is mul_small(., 12).
+// comb_b, dbl_step_body and add_step_body with f2_mulred and f2_mul_fq,
+// f6_mul_ab, f6_mul_cv, sparse_line_mul), step for step: every value is
+// the same integer, so the 16-bit limbs at the boundary equal tower.cuh's
+// and the plain versions' (ops/cuda_tower.py). An Fq value is 13 packed
+// words at R = 2^400, and every Montgomery product is field_w32.cuh's
+// out-of-line `mont`, operands and result in registers. mul12 is
+// mul_small(., 12).
 //
 // What changes is who computes what, and where values live: a group of G
 // threads works each lane, level by level, over the lane's Fq slots in
@@ -23,8 +24,8 @@
 // Fq product Q of (c0, c1, c0 + c1)); the nine Fq2 values of the three Fq6
 // products; the 12 coefficients, each post-reduced. The cyclotomic square
 // (cyc_*): the 18 Fq products of the nine Fq2 squares; the 12 coefficients
-// (the Fq4 squares, 3t -+ 2c), each post-reduced. The Miller doubling
-// iteration's levels are in tower_kernels.cu.
+// (the Fq4 squares, 3t -+ 2c), each post-reduced. The Miller iterations'
+// levels, and the addition iteration's bounds, are with their code below.
 //
 // Bounds (units of p; every value below 2^400, as mont reads word 12 as 16
 // bits; every product value(a) value(b) <= 2^16 p^2; every sum < 2^416):
@@ -61,8 +62,8 @@ using w32::kWords;
 using w32::level;
 
 // The k of the tower's k p offsets.
-enum Kp { K2, K4, K6, K8, K12, K18, K24, K42, K144, kKinds };
-constexpr uint32_t kKp[kKinds] = {2, 4, 6, 8, 12, 18, 24, 42, 144};
+enum Kp { K2, K4, K6, K8, K12, K16, K18, K24, K42, K144, kKinds };
+constexpr uint32_t kKp[kKinds] = {2, 4, 6, 8, 12, 16, 18, 24, 42, 144};
 
 // The constants of a launch, passed by value (the kernel-parameter bank):
 // mont's field, the tower's k p, and 1/2 in Montgomery form (the doubling
@@ -435,13 +436,16 @@ __device__ __forceinline__ bool dbl_mid_ops(const TowerW& t,
   return true;
 }
 
-// Level D, sparse product: leaf k < 45, Karatsuba leaf k % 3 of the Fq2
-// product r = k / 3: c6[j] times la, lb, lc, la, lb + lc for blocks r / 3 =
-// 0 .. 4 with c6 = f0, f0, f1, f0 + f1, f0 + f1 and j = r % 3.
-template <int G>
-__device__ __forceinline__ void sparse_leaf_ops(const Group<G>& grp, int k,
+// The sparse line product f (la + lb v + lc v w) (tower.cuh
+// sparse_line_mul), shared by both iterations: leaf k < 45, Karatsuba leaf
+// k % 3 of the Fq2 product r = k / 3: c6[j] times la, lb, lc, la, lb + lc
+// for blocks r / 3 = 0 .. 4 with c6 = f0, f0, f1, f0 + f1, f0 + f1 and
+// j = r % 3. f at slots F; la(u) gives la's component u; lb, lc at slots
+// LB, LC.
+template <int G, class La>
+__device__ __forceinline__ void sparse_leaf_ops(const Group<G>& grp, int F,
+                                                La la, int LB, int LC, int k,
                                                 Fw& x, Fw& y) {
-  constexpr int F = DblSlots::kF, D3 = DblSlots::kD3;
   const int r = k / 3, blk = r / 3, j = r % 3;
   const auto left = [&](int u) {
     const int f0 = F + 2 * j + u, f1 = f0 + 6;
@@ -449,8 +453,8 @@ __device__ __forceinline__ void sparse_leaf_ops(const Group<G>& grp, int k,
                    : blk == 2 ? grp.ld(f1) : add(grp.ld(f0), grp.ld(f1));
   };
   const auto right = [&](int u) {
-    const int la = D3 + 14 + u, lb = D3 + 10 + u, lc = D3 + 12 + u;
-    return blk == 0 || blk == 3 ? grp.ld(la)
+    const int lb = LB + u, lc = LC + u;
+    return blk == 0 || blk == 3 ? la(u)
            : blk == 1           ? grp.ld(lb)
            : blk == 2           ? grp.ld(lc)
                                 : add(grp.ld(lb), grp.ld(lc));
@@ -482,13 +486,14 @@ __device__ __forceinline__ void dbl_late_ops(const TowerW& t,
   }
 }
 
-// Level E: the sparse product's Fq6 value j = s % 3 of t0 = f0 (la + lb v),
-// t1 = f1 lc v, ts = (f0 + f1)(la + (lb + lc) v) for s / 3 = 0, 1, 2
-// (tower.cuh f6_mul_ab, f6_mul_cv), into slots kT6 + 6 (s / 3) + 2 j, + 1.
+// The sparse product's Fq6 value j = s % 3 of t0 = f0 (la + lb v), t1 =
+// f1 lc v, ts = (f0 + f1)(la + (lb + lc) v) for s / 3 = 0, 1, 2 (tower.cuh
+// f6_mul_ab, f6_mul_cv), from its leaves at LEAF into slots T6 + 6 (s / 3)
+// + 2 j, + 1.
 template <int G>
 __device__ __forceinline__ void sparse_comb(const TowerW& t,
-                                            const Group<G>& grp, int s) {
-  constexpr int LEAF = DblSlots::kLeaf, T6 = DblSlots::kT6;
+                                            const Group<G>& grp, int LEAF,
+                                            int T6, int s) {
   const int F = s / 3, j = s % 3;
   const auto P = [&](int blk, int jj, int u) {
     return kara(t, grp, LEAF + 3 * (3 * blk + jj), u);
@@ -548,7 +553,9 @@ __device__ __forceinline__ void miller_dbl(const TowerW& t,
   level(grp, 55, [&](int k) {                    // D
     Fw x, y;
     if (k < 45)
-      sparse_leaf_ops(grp, k, x, y);
+      sparse_leaf_ops(grp, S::kF,
+                      [&](int u) { return grp.ld(S::kD3 + 14 + u); },
+                      S::kD3 + 10, S::kD3 + 12, k, x, y);
     else
       dbl_late_ops(t, grp, k - 45, x, y);
     const Fw r = w32::mont(t.f, x, y);
@@ -566,7 +573,7 @@ __device__ __forceinline__ void miller_dbl(const TowerW& t,
       else
         grp.st(S::kD2 + k - 2, r);
     } else {
-      sparse_comb(t, grp, k - 4);
+      sparse_comb(t, grp, S::kLeaf, S::kT6, k - 4);
     }
   });
   level(grp, 14, [&](int k) {                    // F
@@ -577,6 +584,174 @@ __device__ __forceinline__ void miller_dbl(const TowerW& t,
       out(kOutY, u, subk(t, grp.ld(S::kD2 + u),
                          triple(grp.ld(S::kLeaf + 45 + u)), K8));
     }
+  });
+}
+
+
+// ---------------------------------------------- the Miller addition iteration
+//
+// f <- f line_{R,Q}(P), R <- R + Q with Q = (xq, yq) affine (tower.cuh:
+// add_step_body, f2_mul_fq for lb = -theta px and lc = lambda py,
+// sparse_line_mul on f), step for step, in eight levels of products (the
+// point step's dependency levels, the sparse product's side by side with
+// them from the level where j, lb and lc exist) and one without:
+//   A   6: the leaves of yq Z and xq Z;
+//   B   4: their post-reductions; theta = Y - yqZ + 2p, lambda = X - xqZ +
+//          2p follow (no product; each task recomputes them);
+//   C  12 + 4: the leaves of theta^2, lambda^2, theta xq, lambda yq;
+//          lb = (16p - theta) px, lc = lambda py;
+//   D   8: the four post-reductions (cc, d, theta xq, lambda yq); j =
+//          theta xq - lambda yq + 2p follows;
+//   E  45 + 9: the sparse product's leaves (la = j); the leaves of
+//          lambda d, Z cc, X d;
+//   F   6 + 9: their post-reductions (e, ff, g); the sparse product's nine
+//          Fq6 values (no product); h = e + ff - 2g + 4p follows;
+//   G  12 + 12: f's 12 coefficients, post-reduced (f12_comb with K12,
+//          K18); the leaves of lambda h, e Z, e Y, theta (g - h + 8p);
+//   H   8: their post-reductions: X3, Z3 out; eY, theta (g - h + 8p);
+//   I   2 (no product): Y3 = theta (g - h + 8p) - eY + 2p.
+// 126 Montgomery products in 17 rounds of G = 8 threads.
+//
+// Bounds (tower.cuh add_step_body and sparse_line_mul, as stated there;
+// units of p): f, X, Z < 2; Y < 10; xq, yq, px, py < 1.
+//   * theta < 12, lambda < 4 (yqZ, xqZ < 2 post-reduced); the widest leaf
+//     of C, (theta0 + theta1)^2 < 24^2; -theta = 16 - theta < 16.
+//   * cc, d, theta xq, lambda yq < 2; j < 4; lb, lc < 2.
+//   * E: (lambda0 + lambda1)(d0 + d1) < 8 4, (Z0 + Z1)(cc0 + cc1) < 4 4,
+//     (X0 + X1)(d0 + d1) < 4 4; the sparse leaves as the doubling
+//     iteration's with la < 4 (there < 50): (s0 + s1)(la0 + la1) < 8 8.
+//   * e, ff, g < 2; h = (e + ff) - 2g + 4 < 8 (2g < 4); g - h + 8 < 10.
+//   * G: (lambda0 + lambda1)(h0 + h1) < 8 16, (e0 + e1)(Y0 + Y1) < 4 20,
+//     (theta0 + theta1)((g - h + 8)0 + (g - h + 8)1) < 24 20 = 480, each
+//     <= 2^16; the sparse product's Fq6 values < 18, raw < 54 (K12, K18).
+//   * X3, Z3 < 2; Y3 = theta (g - h + 8) - eY + 2 < 4.
+//
+// The lane's slots: f at kF; leaves at kLeaf (A's at 0 .. 5, C's at 0 ..
+// 11, E's at 0 .. 53, G's at 0 .. 11); the sparse product's Fq6 values at
+// kT6; X, Y, Z, xq, yq, px, py at kPt; yqZ, xqZ (then eY, theta (g - h +
+// 8p)) at kB; lb, lc at kC; cc, d, theta xq, lambda yq at kD; e, ff, g at
+// kE.
+struct AddSlots {
+  static constexpr int kF = 0, kLeaf = 12, kT6 = 66, kPt = 84, kB = 96,
+                       kC = 100, kD = 104, kE = 112, kSlots = 118;
+};
+
+// theta (u = 0, 1) = Y - yqZ + 2p and lambda (u = 2, 3) = X - xqZ + 2p.
+template <int G>
+__device__ __forceinline__ Fw add_tl(const TowerW& t, const Group<G>& grp,
+                                     int u) {
+  using S = AddSlots;
+  const int c = u % 2, pt = u < 2 ? S::kPt + 2 : S::kPt;
+  return subk(t, grp.ld(pt + c), grp.ld(S::kB + u), K2);
+}
+
+// h = (e + ff) - 2g + 4p, component u.
+template <int G>
+__device__ __forceinline__ Fw add_h(const TowerW& t, const Group<G>& grp,
+                                    int u) {
+  constexpr int E = AddSlots::kE;
+  return subk(t, add(grp.ld(E + u), grp.ld(E + 2 + u)),
+              dbl(grp.ld(E + 4 + u)), K4);
+}
+
+// The operands of Karatsuba leaf k % 3 of the Fq2 product k / 3 of one
+// point-step level: L names each product's two operands by component.
+template <class L>
+__device__ __forceinline__ void add_leaf_ops(int k, L operand, Fw& x, Fw& y) {
+  const int n = k / 3;
+  kara_ops(k % 3, [&](int u) { return operand(n, 0, u); },
+           [&](int u) { return operand(n, 1, u); }, x, y);
+}
+
+// The iteration after the lane's inputs are in its slots (f at kF; X, Y,
+// Z, xq, yq at kPt .. kPt + 9; px, py at kPt + 10, kPt + 11): out(kind, c,
+// v) takes f's coefficient c (< 2p) and the components c of X3, Y3, Z3.
+template <int G, class Out>
+__device__ __forceinline__ void miller_add(const TowerW& t,
+                                           const Group<G>& grp, Out out) {
+  using S = AddSlots;
+  const auto pt = [&](int i, int u) { return grp.ld(S::kPt + 2 * i + u); };
+  const auto red = [&](int L, int u) {
+    return post_red(t, kara(t, grp, L, u));
+  };
+  level(grp, 6, [&](int k) {                     // A: yq Z, xq Z
+    Fw x, y;
+    add_leaf_ops(k, [&](int n, int o, int u) {
+      return o == 0 ? pt(4 - n, u) : pt(2, u);
+    }, x, y);
+    grp.st(S::kLeaf + k, w32::mont(t.f, x, y));
+  });
+  level(grp, 4, [&](int k) {                     // B
+    grp.st(S::kB + k, red(S::kLeaf + 3 * (k / 2), k % 2));
+  });
+  level(grp, 16, [&](int k) {                    // C
+    Fw x, y;
+    int to = S::kLeaf + k;
+    if (k < 12) {               // theta^2, lambda^2, theta xq, lambda yq
+      add_leaf_ops(k, [&](int n, int o, int u) {
+        if (o == 0 || n < 2) return add_tl(t, grp, (n % 2 == 0 ? 0 : 2) + u);
+        return pt(n + 1, u);
+      }, x, y);
+    } else if (k < 14) {        // lb = (16p - theta) px
+      x = negk(t, add_tl(t, grp, k - 12), K16);
+      y = grp.ld(S::kPt + 10);
+      to = S::kC + k - 12;
+    } else {                    // lc = lambda py
+      x = add_tl(t, grp, k - 12);
+      y = grp.ld(S::kPt + 11);
+      to = S::kC + k - 12;
+    }
+    grp.st(to, w32::mont(t.f, x, y));
+  });
+  level(grp, 8, [&](int k) {                     // D
+    grp.st(S::kD + k, red(S::kLeaf + 3 * (k / 2), k % 2));
+  });
+  level(grp, 54, [&](int k) {                    // E
+    Fw x, y;
+    if (k < 45) {
+      sparse_leaf_ops(grp, S::kF, [&](int u) {   // la = j
+        return subk(t, grp.ld(S::kD + 4 + u), grp.ld(S::kD + 6 + u), K2);
+      }, S::kC, S::kC + 2, k, x, y);
+    } else {                    // lambda d, Z cc, X d
+      add_leaf_ops(k - 45, [&](int n, int o, int u) {
+        if (o == 1) return grp.ld(S::kD + (n == 1 ? 0 : 2) + u);
+        return n == 0 ? add_tl(t, grp, 2 + u) : pt(n == 1 ? 2 : 0, u);
+      }, x, y);
+    }
+    grp.st(S::kLeaf + k, w32::mont(t.f, x, y));
+  });
+  level(grp, 15, [&](int k) {                    // F
+    if (k < 6)
+      grp.st(S::kE + k, red(S::kLeaf + 45 + 3 * (k / 2), k % 2));
+    else
+      sparse_comb(t, grp, S::kLeaf, S::kT6, k - 6);
+  });
+  level(grp, 24, [&](int k) {                    // G
+    if (k < 12) {
+      out(kOutF, k, post_red(t, f12_comb(t, grp, S::kT6, k, K12, K18)));
+      return;
+    }
+    Fw x, y;                    // lambda h, e Z, e Y, theta (g - h + 8p)
+    add_leaf_ops(k - 12, [&](int n, int o, int u) {
+      if (o == 0) {
+        if (n == 0) return add_tl(t, grp, 2 + u);
+        return n == 3 ? add_tl(t, grp, u) : grp.ld(S::kE + u);
+      }
+      if (n == 0) return add_h(t, grp, u);
+      if (n == 3) return subk(t, grp.ld(S::kE + 4 + u), add_h(t, grp, u), K8);
+      return pt(n == 1 ? 2 : 1, u);
+    }, x, y);
+    grp.st(S::kLeaf + k - 12, w32::mont(t.f, x, y));
+  });
+  level(grp, 8, [&](int k) {                     // H
+    const Fw r = red(S::kLeaf + 3 * (k / 2), k % 2);
+    if (k < 4)
+      out(k < 2 ? kOutX : kOutZ, k % 2, r);
+    else
+      grp.st(S::kB + k - 4, r);
+  });
+  level(grp, 2, [&](int u) {                     // I
+    out(kOutY, u, subk(t, grp.ld(S::kB + 2 + u), grp.ld(S::kB + u), K2));
   });
 }
 

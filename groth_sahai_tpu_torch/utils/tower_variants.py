@@ -3,18 +3,21 @@
     python3 -m groth_sahai_tpu_torch.utils.tower_variants [--against DIR]
 
 Needs one NVIDIA H100 (sm_90a) and nvcc. Builds `csrc/tower_kernels.cu` as
-it stands and with the threads a lane of fq12_mul, cyc_pow and
-miller_iter_dbl (`kFq12MulGroup`, `kCycPowGroup`, `kDblGroup`) all set
-to each of 4, 8, 16 and 32 in copies of its sources,
+it stands and with the threads a lane of fq12_mul, cyc_pow,
+miller_iter_dbl and miller_iter_add (`kFq12MulGroup`, `kCycPowGroup`,
+`kDblGroup`, `kAddGroup`) all set to each of 4, 8, 16 and 32 in copies of
+its sources,
 one nvcc each, all at once, into
 `groth_sahai_tpu_torch/build/tower_variants/`. For each it prints ptxas's
-report of the three kernels and of `mont` (frame, spills, registers) and
+report of the four kernels and of `mont` (frame, spills, registers) and
 their SASS (instructions, and the mix of their Montgomery product), then
 times, by CUDA events, fq12_mul over 4 lanes (the final exponentiation's
 products), 256, 2048 (the first halving of verify's Miller product tree)
 and 4096 lanes, cyc_pow over 4 lanes (the verifier's final
-exponentiation, e = |x|) and over 4096, and miller_iter_dbl over 4096
-lanes (the verifier's Miller loop), in the order as built, variants, as
+exponentiation, e = |x|) and over 4096, miller_iter_dbl over 4096 lanes
+(the verifier's Miller loop) and miller_iter_add over 4096, 128 and 32
+lanes (the verifier's; gs-e2e's widest and narrowest), in the order as
+built, variants, as
 built, each variant's outputs against the committed build's; the
 committed build's against the plain versions. With
 `--against DIR`, the tower library built from the kernel sources in DIR
@@ -41,12 +44,13 @@ from .curve_variants import _bind, _events_ms, _limbs, build_variants, \
     card_line, group_variants, ptxas_report, sass_report
 
 OUT = cuda_build.BUILD_DIR / "tower_variants"
-TOWER_SASS = (r"(fq12_mul|cyc_pow|miller_iter_dbl)_kernelILi(\d+)E",
-              "{} at {} threads a lane")
-# ptxas lines: the three kernels, and the Montgomery product they call
-PTXAS = r"fq12_mul_kernel|cyc_pow_kernel|miller_iter_dbl_kernel|mont"
+TOWER_SASS = (r"(fq12_mul|cyc_pow|miller_iter_dbl|miller_iter_add)"
+              r"_kernelILi(\d+)E", "{} at {} threads a lane")
+# ptxas lines: the four kernels, and the Montgomery product they call
+PTXAS = (r"fq12_mul_kernel|cyc_pow_kernel|miller_iter_dbl_kernel|"
+         r"miller_iter_add_kernel|mont")
 _CONST = re.compile(r"(constexpr int (kFq12MulGroup|kCycPowGroup|"
-                    r"kDblGroup) = )(\d+);")
+                    r"kDblGroup|kAddGroup) = )(\d+);")
 
 
 def built_groups() -> dict:
@@ -57,7 +61,7 @@ def built_groups() -> dict:
 
 def variants() -> dict:
     """name -> {file: transform}: as built, then every G of GROUPS for all
-    three kernels that is not the committed choice."""
+    four kernels that is not the committed choice."""
     return group_variants("tower_kernels.cu", _CONST, built_groups())
 
 
@@ -92,7 +96,7 @@ def cases(gen):
     R = [_limbs((2, lanes), b, gen) for b in (2, 10, 2)]
     P = [_limbs((lanes,), 1, gen) for _ in range(2)]
 
-    def dbl_call(lib):
+    def dbl_call(lib, f=f, R=R, P=P, lanes=lanes):
         fo = torch.empty_like(f)
         rs = [torch.empty_like(R[0]) for _ in range(3)]
         check(lib.gs_miller_iter_dbl(
@@ -101,11 +105,30 @@ def cases(gen):
             "miller_iter_dbl", FQ.n)
         return [fo] + rs
 
-    def dbl_plain():
+    def dbl_plain(f=f, R=R, P=P):
         fo, rs = CT.miller_iter_dbl_plain(f, tuple(R), *P)
         return [fo] + list(rs)
     out.append((f"miller_iter_dbl, {lanes} lanes", lanes, dbl_call,
                 dbl_plain))
+    for lanes in (4096, 128, 32):
+        f = _limbs((12, lanes), 2, gen)
+        R = [_limbs((2, lanes), b, gen) for b in (2, 10, 2)]
+        Q = [_limbs((2, lanes), 1, gen) for _ in range(2)]
+        P = [_limbs((lanes,), 1, gen) for _ in range(2)]
+
+        def add_call(lib, f=f, R=R, Q=Q, P=P, lanes=lanes):
+            fo = torch.empty_like(f)
+            rs = [torch.empty_like(R[0]) for _ in range(3)]
+            check(lib.gs_miller_iter_add(
+                FQ.n, *(x.data_ptr() for x in [f] + R + Q + P + [fo] + rs),
+                lanes, *args, FQ.n0, stream), "miller_iter_add", FQ.n)
+            return [fo] + rs
+
+        def add_plain(f=f, R=R, Q=Q, P=P):
+            fo, rs = CT.miller_iter_add_plain(f, tuple(R), tuple(Q), *P)
+            return [fo] + list(rs)
+        out.append((f"miller_iter_add, {lanes} lanes", lanes, add_call,
+                    add_plain))
     return out
 
 

@@ -1,14 +1,15 @@
-"""The grouped packed-word tower of the kernels cyc_pow and miller_iter_dbl.
+"""The grouped packed-word tower of cyc_pow and the two Miller iterations.
 
-`csrc/tower_w32.cuh` cuts an Fq12 product, a cyclotomic square and a Miller
-doubling iteration into levels of independent tasks that the G threads of
-a lane's group take round-robin, each task reading Fq slots of the lane's
-shared memory that earlier levels wrote and writing its own. The kernels
-run only on a card, so this file holds a pure-Python twin of that schedule
--- the same levels, tasks, slots and k p offsets, each Montgomery product
-through the twin of the packed-word product in test_torch_words.py -- and
-holds it limb for limb against the plain versions `cuda_tower.cyc_pow_plain`
-and `miller_iter_dbl_plain` (themselves held against the JAX package in
+`csrc/tower_w32.cuh` cuts an Fq12 product, a cyclotomic square and the
+Miller doubling and addition iterations into levels of independent tasks
+that the G threads of a lane's group take round-robin, each task reading
+Fq slots of the lane's shared memory that earlier levels wrote and writing
+its own. The kernels run only on a card, so this file holds a pure-Python
+twin of that schedule -- the same levels, tasks, slots and k p offsets,
+each Montgomery product through the twin of the packed-word product in
+test_torch_words.py -- and holds it limb for limb against the plain
+versions `cuda_tower.cyc_pow_plain`, `miller_iter_dbl_plain` and
+`miller_iter_add_plain` (themselves held against the JAX package in
 test_torch_cuda_tower.py and test_torch_cuda_miller.py), on seeded inputs
 and on the edges chip_smoke.py uses. The twin asserts the bound audit at
 every step (Montgomery operands < 2^400 with value(a) value(b) <= 2^16 p^2,
@@ -40,7 +41,7 @@ from .test_torch_words import MASK, NPW, NW, mont_w32, n0w_newton
 P = C.P
 ONE = FQ.r_mod_p
 R_INV = pow(1 << 400, -1, P)
-KP = {k: k * P for k in (2, 4, 6, 8, 12, 18, 24, 42, 144)}   # tower_w32.cuh
+KP = {k: k * P for k in (2, 4, 6, 8, 12, 16, 18, 24, 42, 144)}  # tower_w32
 PW = [(P >> (32 * k)) & MASK for k in range(NPW)]
 N0W = n0w_newton(PW[0])
 
@@ -322,12 +323,14 @@ def dbl_mid_ops(ln, d, tinv):
     return None
 
 
-def sparse_leaf_ops(ln, k):
+def sparse_leaf_ops(ln, F, la, LB, LC, k):
+    """Leaf k < 45 of f (la + lb v + lc v w): f at slots F, la(u), lb and
+    lc at slots LB, LC."""
     r = k // 3
     blk, j = r // 3, r % 3
 
     def left(u):
-        f0 = SF + 2 * j + u
+        f0 = F + 2 * j + u
         if blk < 2:
             return ln.ld(f0)
         if blk == 2:
@@ -335,14 +338,13 @@ def sparse_leaf_ops(ln, k):
         return add(ln.ld(f0), ln.ld(f0 + 6))
 
     def right(u):
-        la, lb, lc = SD3 + 14 + u, SD3 + 10 + u, SD3 + 12 + u
         if blk in (0, 3):
-            return ln.ld(la)
+            return la(u)
         if blk == 1:
-            return ln.ld(lb)
+            return ln.ld(LB + u)
         if blk == 2:
-            return ln.ld(lc)
-        return add(ln.ld(lb), ln.ld(lc))
+            return ln.ld(LC + u)
+        return add(ln.ld(LB + u), ln.ld(LC + u))
     return kara_ops(k % 3, left, right)
 
 
@@ -357,11 +359,11 @@ def dbl_late_ops(ln, d):
     return kara_ops(d - 7, g, g)
 
 
-def sparse_comb(ln, s):
+def sparse_comb(ln, LEAF, T6, s):
     F, j = s // 3, s % 3
 
     def Pr(blk, jj, u):
-        return kara(ln, SLEAF + 3 * (3 * blk + jj), u)
+        return kara(ln, LEAF + 3 * (3 * blk + jj), u)
 
     def xi6(blk, jj, u):
         v0, v1 = Pr(blk, jj, 0), Pr(blk, jj, 1)
@@ -373,7 +375,7 @@ def sparse_comb(ln, s):
             ba = 0 if F == 0 else 3
             c = add(Pr(ba, j, u), xi6(ba + 1, 2, u) if j == 0
                     else Pr(ba + 1, j - 1, u))
-        ln.st(ST6 + 6 * F + 2 * j + u, c)
+        ln.st(T6 + 6 * F + 2 * j + u, c)
 
 
 def miller_dbl_twin(f, X, Y, Z, px, py):
@@ -407,7 +409,8 @@ def miller_dbl_twin(f, X, Y, Z, px, py):
             ln.st(SD3 + k - 12, ln.mont(*ops))
 
     def level_d(k):
-        r = ln.mont(*(sparse_leaf_ops(ln, k) if k < 45
+        r = ln.mont(*(sparse_leaf_ops(ln, SF, lambda u: ln.ld(SD3 + 14 + u),
+                                      SD3 + 10, SD3 + 12, k) if k < 45
                       else dbl_late_ops(ln, k - 45)))
         if k in (47, 48):
             out["Z"][k - 47] = r
@@ -422,7 +425,7 @@ def miller_dbl_twin(f, X, Y, Z, px, py):
             else:
                 ln.st(SD2 + k - 2, r)
         else:
-            sparse_comb(ln, k - 4)
+            sparse_comb(ln, SLEAF, ST6, k - 4)
 
     def level_f(k):
         if k < 12:
@@ -433,6 +436,116 @@ def miller_dbl_twin(f, X, Y, Z, px, py):
                                8)
     for n, task in ((69, level_a), (19, level_b), (28, level_c), (55, level_d),
                     (13, level_e), (14, level_f)):
+        ln.level(n, task)
+    return (out["f"], out["X"], out["Y"], out["Z"]), ln
+
+
+# ------------------------------------------------- the addition iteration
+
+AF, ALEAF, AT6, APT, AB, AC, AD, AE, ASLOTS = (0, 12, 66, 84, 96, 100, 104,
+                                               112, 118)
+
+
+def add_tl(ln, u):
+    """theta (u = 0, 1) = Y - yqZ + 2p; lambda (u = 2, 3) = X - xqZ + 2p."""
+    pt = APT + 2 if u < 2 else APT
+    return subk(ln.ld(pt + u % 2), ln.ld(AB + u), 2)
+
+
+def add_h(ln, u):
+    return subk(add(ln.ld(AE + u), ln.ld(AE + 2 + u)), dbl(ln.ld(AE + 4 + u)),
+                4)
+
+
+def add_leaf_ops(k, operand):
+    n = k // 3
+    return kara_ops(k % 3, lambda u: operand(n, 0, u),
+                    lambda u: operand(n, 1, u))
+
+
+def miller_add_twin(f, X, Y, Z, xq, yq, px, py):
+    """miller_iter_add_kernel for one lane (ints: f 12, X .. yq 2 each);
+    returns (f', X3, Y3, Z3) and the lane."""
+    ln = Lane(ASLOTS)
+    ins = f + X + Y + Z + xq + yq + [px, py]
+    ln.level(24, lambda k: ln.st(AF + k if k < 12 else APT + k - 12, ins[k]))
+    out = {"f": [None] * 12, "X": [None] * 2, "Y": [None] * 2,
+           "Z": [None] * 2}
+    pt = lambda i, u: ln.ld(APT + 2 * i + u)
+    red = lambda L, u: ln.post_red(kara(ln, L, u))
+
+    def level_a(k):                      # yq Z, xq Z
+        x, y = add_leaf_ops(k, lambda n, o, u: pt(4 - n, u) if o == 0
+                            else pt(2, u))
+        ln.st(ALEAF + k, ln.mont(x, y))
+
+    def level_c(k):
+        if k < 12:                       # theta^2, lambda^2, theta xq, ...
+            def operand(n, o, u):
+                if o == 0 or n < 2:
+                    return add_tl(ln, (0 if n % 2 == 0 else 2) + u)
+                return pt(n + 1, u)
+            ln.st(ALEAF + k, ln.mont(*add_leaf_ops(k, operand)))
+        elif k < 14:                     # lb = (16p - theta) px
+            ln.st(AC + k - 12, ln.mont(negk(add_tl(ln, k - 12), 16),
+                                       ln.ld(APT + 10)))
+        else:                            # lc = lambda py
+            ln.st(AC + k - 12, ln.mont(add_tl(ln, k - 12), ln.ld(APT + 11)))
+
+    def level_e(k):
+        if k < 45:                       # la = j
+            x, y = sparse_leaf_ops(
+                ln, AF, lambda u: subk(ln.ld(AD + 4 + u), ln.ld(AD + 6 + u), 2),
+                AC, AC + 2, k)
+        else:                            # lambda d, Z cc, X d
+            def operand(n, o, u):
+                if o == 1:
+                    return ln.ld(AD + (0 if n == 1 else 2) + u)
+                return add_tl(ln, 2 + u) if n == 0 else pt(2 if n == 1 else 0,
+                                                           u)
+            x, y = add_leaf_ops(k - 45, operand)
+        ln.st(ALEAF + k, ln.mont(x, y))
+
+    def level_f(k):
+        if k < 6:
+            ln.st(AE + k, red(ALEAF + 45 + 3 * (k // 2), k % 2))
+        else:
+            sparse_comb(ln, ALEAF, AT6, k - 6)
+
+    def level_g(k):
+        if k < 12:
+            out["f"][k] = ln.post_red(f12_comb(ln, AT6, k, 12, 18))
+            return
+
+        def operand(n, o, u):            # lambda h, e Z, e Y, theta t
+            if o == 0:
+                if n == 0:
+                    return add_tl(ln, 2 + u)
+                return add_tl(ln, u) if n == 3 else ln.ld(AE + u)
+            if n == 0:
+                return add_h(ln, u)
+            if n == 3:
+                return subk(ln.ld(AE + 4 + u), add_h(ln, u), 8)
+            return pt(2 if n == 1 else 1, u)
+        ln.st(ALEAF + k - 12, ln.mont(*add_leaf_ops(k - 12, operand)))
+
+    def level_h(k):
+        r = red(ALEAF + 3 * (k // 2), k % 2)
+        if k < 4:
+            out["X" if k < 2 else "Z"][k % 2] = r
+        else:
+            ln.st(AB + k - 4, r)
+
+    def level_i(u):
+        out["Y"][u] = subk(ln.ld(AB + 2 + u), ln.ld(AB + u), 2)
+    for n, task in ((6, level_a),
+                    (4, lambda k: ln.st(AB + k, red(ALEAF + 3 * (k // 2),
+                                                    k % 2))),
+                    (16, level_c),
+                    (8, lambda k: ln.st(AD + k, red(ALEAF + 3 * (k // 2),
+                                                    k % 2))),
+                    (54, level_e), (15, level_f), (24, level_g), (8, level_h),
+                    (2, level_i)):
         ln.level(n, task)
     return (out["f"], out["X"], out["Y"], out["Z"]), ln
 
@@ -533,6 +646,51 @@ def test_group_miller_iter_dbl_matches_plain():
             assert [limbs(v) for v in g] == w[:, :, lane].T.tolist()
         assert ln.products == 176
         assert ln.rounds[8] == 25
+
+
+def miller_lanes(lanes, seed):
+    """chip_smoke.py's Miller inputs as numpy limbs: f < 2p; X, Z < 2p, Y <
+    10p; Q, P < p; lane 0 at the top of every bound, lane 1 with R, Q and P
+    zero (P, Q the padding point (0, 0)), lane 2 with P zero, lane 3 with Q
+    zero."""
+    f = f12_lanes(seed, lanes, 2 * P, [2 * P - 1, 2 * P - 1])
+    fq2 = lambda s, bound, top: with_edges(
+        rand_coeffs(s, 2, lanes, bound=bound), [top, 0])
+    X, Y, Z = (fq2(seed + 1, 2 * P, 2 * P - 1),
+               fq2(seed + 2, 10 * P, 10 * P - 1),
+               fq2(seed + 3, 2 * P, 2 * P - 1))
+    xq, yq = (fq2(seed + s, P, P - 1) for s in (4, 5))
+    px, py = (with_edges(rand_coeffs(seed + s, 1, lanes), [P - 1, 0])[:, 0]
+              for s in (6, 7))
+    for x in (px, py):
+        x[:, 2] = 0
+    for x in (xq, yq):
+        x[:, :, 3] = 0
+    return f, X, Y, Z, xq, yq, px, py
+
+
+def test_group_miller_iter_add_matches_plain():
+    """miller_iter_add_kernel's levels against miller_iter_add_plain, limb
+    for limb, on seeded lanes and chip_smoke.py's edge lanes: 126 products
+    in 17 rounds at G = 8 (12 at 16, 33 at 4), no slot shared within a
+    level, every bound of the audit held."""
+    lanes = 6
+    ins = miller_lanes(lanes, 50)
+    t = lambda x: limbs_from_numpy(x, device="cpu")
+    f, X, Y, Z, xq, yq, px, py = ins
+    wf, wR = CT.miller_iter_add_plain(t(f), (t(X), t(Y), t(Z)),
+                                      (t(xq), t(yq)), t(px), t(py))
+    v = [ints(x) for x in ins]
+    for lane in range(lanes):
+        (gf, gX, gY, gZ), ln = miller_add_twin(
+            [int(v[0][c, lane]) for c in range(12)],
+            *([int(x[u, lane]) for u in range(2)] for x in v[1:6]),
+            int(v[6][lane]), int(v[7][lane]))
+        assert [limbs(x) for x in gf] == wf[:, :, lane].T.tolist()
+        for g, w in zip((gX, gY, gZ), wR):
+            assert [limbs(x) for x in g] == w[:, :, lane].T.tolist()
+        assert ln.products == 126
+        assert (ln.rounds[4], ln.rounds[8], ln.rounds[16]) == (33, 17, 12)
 
 
 def test_tower_variants_imports_neither_jax_nor_the_jax_package():
