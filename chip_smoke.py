@@ -10,9 +10,10 @@ Phases (any failure exits non-zero and prints no result line):
                 build time, the compiler's resource report, the card's
                 name and power limit, and from cuobjdump the instructions of
                 the packed-word kernels (cadd, cmsm_row_scan, cdbl_n_add,
-                fq12_mul, cyc_pow, miller_iter_dbl, miller_iter_add,
-                pow_const) and of their Montgomery product, with the
-                grouped kernels' frames, spills and registers;
+                cmadd, fq12_mul, cyc_pow, f12_pow_dyn, miller_iter_dbl,
+                miller_iter_add, pow_const) and of their Montgomery
+                product, with the grouped kernels' frames, spills and
+                registers;
   2. kernels -- each of the sixteen kernels against its plain PyTorch version on
                 the card, bit-exact, at the paths' main shapes: the field
                 kernels at Fq width over the pairing's stacks (16384,
@@ -25,9 +26,10 @@ Phases (any failure exits non-zero and prints no result line):
                 and 1000 lanes; the Miller iterations and cyc_sqr over
                 4096, the Miller iterations also over 1, 3, 1000 and 4099
                 lanes and miller_iter_add over 128 (gs-e2e's), f12_pow_dyn
-                over 4096 and 1024; cmadd and
+                over 4096 and 1024 and the ragged 3; cmadd and
                 cdbl_n_add (n = 4) on G1 over 4096, 1336 and 4 lanes and on
-                G2 over 1336 and 4, cdbl_n_add on G2 with n = 8 over 668
+                G2 over 1336 and 4, cmadd on G1 and G2 also over the ragged
+                1 and 1001, cdbl_n_add on G2 with n = 8 over 668
                 (verify-ppe-334's window combination), on G1 with n = 13
                 over 1 lane (msm-g1-65536's) and on G1 and G2 with n = 8
                 over 1000 lanes and n = 13 over 3; cadd
@@ -527,7 +529,7 @@ GAMMA_D_SHIFT = ("G2", 2 * PPE_M, 8)
 # msm-g1-65536 combines its windows over one lane, n_dbl = 13
 MSM_G1_SHIFT = ("G1", 1, 13)
 ALSO_TIMED = {"fq12_mul": [("Fq", 4), ("Fq", 2048)],
-              "cyc_pow": [("Fq", 4)],
+              "cyc_pow": [("Fq", 4)], "f12_pow_dyn": [("Fq", EQUATIONS)],
               "pow_const": [("Fq", 4), ("Fq", 21)],
               "miller_iter_add": [("Fq", 128)],
               "cmadd": [("G2", COMMIT_LANES), ("G1", COMMIT_LANES)],
@@ -736,12 +738,13 @@ def phase2_shapes():
                for m in RAGGED + (FUSED + 3,)]
     shapes += [("miller_iter_add", FQ, m, None)
                for _, m in ALSO_TIMED["miller_iter_add"]]
-    shapes += [("f12_pow_dyn", FQ, m, None) for m in (FUSED, EQUATIONS)]
+    shapes += [("f12_pow_dyn", FQ, m, None) for m in (FUSED, EQUATIONS, 3)]
     from groth_sahai_tpu_torch.ops.curve import G1, G2
     for name in CURVE:
         e = 4 if name == "cdbl_n_add" else None
         shapes += [(name, G1, m, e) for m in (SCALAR_LANES, COMMIT_LANES, 4)]
         shapes += [(name, G2, m, e) for m in (COMMIT_LANES, 4)]
+    shapes += [("cmadd", c, m, None) for c in (G1, G2) for m in (1, 1001)]
     assert ppe_window(PPE_M) == GAMMA_D_SHIFT[2]
     assert msm_geometry(MSM_POINTS)[0] == MSM_G1_SHIFT[2]
     shapes.append(("cdbl_n_add", G2) + GAMMA_D_SHIFT[1:])
@@ -1729,9 +1732,11 @@ def bound_ms(name: str, lanes: int, args) -> tuple:
     product), an addition iteration 126 (65 + 4 + 57); a complete mixed
     add 11, a complete doubling 8, a complete add 12 (each Fq2 product on
     G2 five), the row scan 11 per row; the Miller doubling step 49, the
-    addition step 65. The chains count what this input needs: a square
-    per bit, a product per set bit (for f12_pow_dyn, each lane's own
-    scalar bits). One yardstick for every kernel, whatever its limbs."""
+    addition step 65. Each counts what this input needs: a square per
+    bit, a product per set bit (for f12_pow_dyn, each lane's own scalar
+    bits); the mixed adds of cmadd and the row scan, and their affine
+    coordinates, only where the point's flag is clear. One yardstick for
+    every kernel, whatever its limbs."""
     from groth_sahai_tpu_torch.ops import cuda_fp as K
     from groth_sahai_tpu_torch.ops import cuda_tower as CT
     from groth_sahai_tpu_torch.ops.fp import FQ, FR
@@ -1750,20 +1755,27 @@ def bound_ms(name: str, lanes: int, args) -> tuple:
         products = (CT.POW_DYN_NBITS * 66 + set_bits * 66 / lanes) * mont
     elif name in CURVE + MSM_KERNELS:
         # an Fq2 product is 5 Montgomery products (3 Karatsuba + 2
-        # post-reductions); cmadd 11 products, a doubling 8, an add 12,
-        # the row scan 11 a row; coordinates: 5 in + 3 out (cmadd, plus one
-        # flag byte a lane), 6 in + 3 out (cdbl_n_add, cadd), a row scan
-        # 2 in + 3 out a row (plus a flag byte) and 3 totals
+        # post-reductions); a doubling 8, an add 12 (cdbl_n_add, cadd: 6
+        # coordinates in, 3 out); a mixed add 11 (cmadd, the row scan) only
+        # where the affine point's flag is clear: a flagged lane (cmadd) or
+        # row (the row scan) makes no product and needs neither affine
+        # coordinate. cmadd: 3 coordinates in and 3 out a lane, 2 affine in
+        # a live lane, a flag byte a lane; the row scan: 3 out a row, 2
+        # affine in a live row, a flag byte a row, 3 totals a lane
         ns = args[-1].ns
-        rows = args[0][2].shape[0] if name == "cmsm_row_scan" else 1
-        per = {"cmadd": 11, "cadd": 12, "cmsm_row_scan": 11 * rows}.get(
-            name) or 8 * args[1] + 12
-        products = per * (5 if ns == 2 else 1) * mont
-        coords = {"cmadd": 8, "cmsm_row_scan": 5 * rows + 3}.get(name, 9)
-        flag_bytes = {"cmadd": 1, "cmsm_row_scan": rows}.get(name, 0)
-        t_bytes = (coords * n * ns * 8 + flag_bytes) * lanes \
-            / PEAK_BYTES_PER_S * 1e3
-        t_ops = products * lanes / PEAK_IMAD_PER_S * 1e3
+        coord = n * ns * 8
+        if name in ("cmadd", "cmsm_row_scan"):
+            flags = args[1][2] if name == "cmadd" else args[0][2]
+            live = int((flags == 0).sum())
+            adds = 11 * live
+            out = 6 if name == "cmadd" else 3 * flags.shape[0] + 3
+            nbytes = (2 * live + out * lanes) * coord + flags.numel()
+        else:
+            adds = (12 if name == "cadd" else 8 * args[1] + 12) * lanes
+            nbytes = 9 * coord * lanes
+        products = adds * (5 if ns == 2 else 1) * mont
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = products / PEAK_IMAD_PER_S * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                      else "operations")
     else:

@@ -1,14 +1,14 @@
-// The complete doubling and add (RCB16 Algorithms 9 and 7, a = 0) of the
-// kernel cdbl_n_add on packed 32-bit words (field_w32.cuh), worked by a
-// group of G threads per lane (group_w32.cuh), for G1 (S = 1 Fq component
-// a coordinate) and G2 (S = 2, Fq2).
+// The complete doubling, add and mixed add (RCB16 Algorithms 9, 7 and 8,
+// a = 0) of the kernels cdbl_n_add and cmadd on packed 32-bit words
+// (field_w32.cuh), worked by a group of G threads per lane (group_w32.cuh),
+// for G1 (S = 1 Fq component a coordinate) and G2 (S = 2, Fq2).
 //
-// The formulas, k p offsets and order are the reference's _cdbl_body and
-// _cadd_body (groth_sahai_tpu/ops/pallas_curve.py), as the plain versions
-// of ops/cuda_curve.py write them: every value is the same integer, so the
-// 16-bit limbs at the boundary equal cdbl_n_add_plain's. A product is
-// field_w32.cuh's mont on G1, and on G2 the Karatsuba of tower.cuh's
-// f2_mulred: leaves t0 = a0 b0, t1 = a1 b1, t2 = (a0 + a1)(b0 + b1), then
+// The formulas, k p offsets and order are the reference's _cdbl_body,
+// _cadd_body and _cmadd_body (groth_sahai_tpu/ops/pallas_curve.py), as the
+// plain versions of ops/cuda_curve.py write them: every value is the same
+// integer, so the 16-bit limbs at the boundary equal cdbl_n_add_plain's
+// and cmadd_plain's. A product is field_w32.cuh's mont on G1, and on G2
+// the Karatsuba of the reference's _f2_mulred: leaves t0 = a0 b0, t1 = a1 b1, t2 = (a0 + a1)(b0 + b1), then
 // c0 = t0 - t1 + 2p and c1 = t2 - t0 - t1 + 4p, each times R mod p. b3 = 3b
 // is x12 on G1 (b = 4); on G2 (b' = 4(u + 1)) the xi twist (a0 - a1 + k p,
 // a0 + a1), then x12.
@@ -24,12 +24,19 @@
 //     u = t0' Y3: X = v + v, Y = t2 Z3 + u, Z = t1 Z3), summed by the
 //     tasks that read its coordinates (a Pt of slot sums).
 //   add: X1 X2, Y1 Y2, Z1 Z2, (X1 + Y1)(X2 + Y2), (Y1 + Z1)(Y2 + Z2),
-//     (X1 + Z1)(X2 + Z2); then finish's six (curve.cuh): t3' t1', t4' Y3',
-//     t1' Z3, Y3' t0', Z3 t4', t0' t3'; then a level without products that
-//     stores X3 = a - b + 2p, Y3 = c + d, Z3 = e + g.
+//     (X1 + Z1)(X2 + Z2); then the finish's six (add_finish): t3' t1',
+//     t4' Y3', t1' Z3, Y3' t0', Z3 t4', t0' t3'; then a level without
+//     products that stores X3 = a - b + 2p, Y3 = c + d, Z3 = e + g.
+//   mixed add: X1 x2, Y1 y2, (x2 + y2)(X1 + Y1), y2 Z1, x2 Z1; then the
+//     add's finish and store levels with its own operand forms: t3' =
+//     t3 - (t0 + t1) + 4p, t4' = y2 Z1 + Y1, t0' = 3 t0, t2' = b3(Z1)
+//     (offset 4p), Z3 = t1 + t2', t1' = t1 - t2' + 96p, Y3' = b3(x2 Z1 +
+//     X1) (offset 8p). A lane whose affine point is at infinity makes no
+//     product (the kernel copies its accumulator).
 // Rounds of products a lane, at G = 4, 8, 16, 32 threads: a G1 doubling 2
 // at each G, a G1 add 4, 2, 2, 2; a G2 doubling 10, 6, 4, 4, a G2 add 16,
-// 10, 6, 4.
+// 10, 6, 4. A mixed add at G = 2, 4, 8, 16, 32: G1 6, 4, 2, 2, 2 where one
+// thread makes 11 products; G2 28, 15, 9, 5, 4 where one thread makes 55.
 //
 // Bounds (units of p; every mont operand below 2^400, as mont reads word 12
 // as 16 bits; value(a) value(b) <= 2^16 p^2 with the Fq2 Karatsuba sums
@@ -45,6 +52,13 @@
 //     (offset 8p) < 168p (G2 c0; c1 < 144p; G1 < 72p); the widest leaves
 //     (t1'0 + t1'1)(Z3_0 + Z3_1) < 100p 100p and (t4'0 + t4'1)(Y3'0 +
 //     Y3'1) < 12p 312p. Out: X3 = a - b + 2p < 4p, Y3, Z3 < 4p.
+//   mixed add (accumulator < 4p, affine < 2p): the first level's widest
+//     leaf (x2 + y2, both components) < 8p times (X1 + Y1) < 16p; t3', t4',
+//     Y3r = x2 Z1 + X1 < 6p, t0' < 6p, t2' < 96p (G2: 12 (Z0 - Z1 + 4p);
+//     G1 12 Z1 < 48p), Z3 < 98p, t1' = t1 - t2' + 96p < 98p, Y3' < 168p
+//     (G2 c0; c1 < 144p; G1 < 72p); the widest leaves (t1'0 + t1'1)(Z3_0 +
+//     Z3_1) < 196p 196p and (t4'0 + t4'1)(Y3'0 + Y3'1) < 12p 312p. Out:
+//     X3, Y3, Z3 < 4p.
 #pragma once
 
 #include <cstdint>
@@ -66,8 +80,8 @@ using w32::sub;
 using w32::triple;
 
 // The k of the curve's k p offsets.
-enum Kp { K2, K4, K8, K48, K144, kKinds };
-constexpr uint32_t kKp[kKinds] = {2, 4, 8, 48, 144};
+enum Kp { K2, K4, K8, K48, K96, K144, kKinds };
+constexpr uint32_t kKp[kKinds] = {2, 4, 8, 48, 96, 144};
 
 // The constants of a launch, passed by value (the kernel-parameter bank):
 // mont's field and the curve's k p. field_w32.cuh's FieldW is cadd's and
@@ -209,50 +223,31 @@ __device__ __forceinline__ Pt cdbl(const CurveW& t, const Group<G>& grp,
   return Pt{D + 3 * S, D + 3 * S, D, D + 2 * S, D + S};
 }
 
-// p + q (cadd_body), out(c, u, v) taking component u of coordinate c of
-// the sum.
-template <int S, int G, class Out>
-__device__ __forceinline__ void cadd(const CurveW& t, const Group<G>& grp,
-                                     const Pt& p, const Pt& q, Out out) {
+// The last two levels of an add (the finish of _cadd_body and of
+// _cmadd_body): six products t3' t1', t4' Y3', t1' Z3, Y3' t0',
+// Z3 t4', t0' t3' into kFin, with t1' = t1 - t2' + k1 p and Z3 = t1 + t2';
+// then a level without products that gives out(c, u, v) component u of
+// X3 = a - b + 2p, Y3 = c + d, Z3 = e + g. The operand forms are the
+// caller's, each component u of a value formed from the slots its first
+// level wrote: t0' (t0p), t1, t2' (t2p), t3', t4', Y3' (y3p).
+template <int S, int G, class T0, class T1, class T2, class T3, class T4,
+          class Y3, class Out>
+__device__ __forceinline__ void add_finish(const CurveW& t,
+                                           const Group<G>& grp, T0 t0p,
+                                           T1 t1, T2 t2p, T3 t3p, T4 t4p,
+                                           Y3 y3p, Kp k1, Out out) {
   using L = CurveSlots<S>;
-  constexpr int M = L::kMid, F = L::kFin;
-  // t0 = X1 X2, t1 = Y1 Y2, t2 = Z1 Z2, t3 = (X1 + Y1)(X2 + Y2),
-  // t4 = (Y1 + Z1)(Y2 + Z2), t5 = (X1 + Z1)(X2 + Z2)
-  products<S>(t, grp, 6, L::kLeaf, M, [&](int k, int u, Fw& x, Fw& y) {
-    const auto side = [&](const Pt& r) {
-      const Fw a = coord(grp, r, 0x010210 >> (4 * k) & 15, u);
-      return k < 3 ? a : add(a, coord(grp, r, 0x221 >> (4 * (k - 3)) & 15, u));
-    };
-    x = side(p);
-    y = side(q);
-  });
-  const auto T = [&](int i, int u) { return grp.ld(M + S * i + u); };
-  const auto t2p = [&](int u) {                          // b3(t2) < 48p
-    return b3<S>(t, [&](int w) { return T(2, w); }, u, K2);
-  };
-  const auto t3p = [&](int u) {                          // < 6p
-    return subk(t, T(3, u), add(T(0, u), T(1, u)), K4);
-  };
-  const auto t4p = [&](int u) {                          // < 6p
-    return subk(t, T(4, u), add(T(1, u), T(2, u)), K4);
-  };
-  const auto y3p = [&](int u) {                          // b3(Y3r) < 168p
-    return b3<S>(t, [&](int w) {
-      return subk(t, T(5, w), add(T(0, w), T(2, w)), K4);
-    }, u, K8);
-  };
-  // finish: t3' t1', t4' Y3', t1' Z3, Y3' t0', Z3 t4', t0' t3' with
-  // t1' = t1 - t2' + 48p, Z3 = t1 + t2', t0' = 3 t0
+  constexpr int F = L::kFin;
   products<S>(t, grp, 6, L::kLeaf, F, [&](int k, int u, Fw& x, Fw& y) {
     if (k == 1 || k == 3) {
       x = y3p(u);
-      y = k == 1 ? t4p(u) : triple(T(0, u));
+      y = k == 1 ? t4p(u) : t0p(u);
     } else if (k == 5) {
-      x = triple(T(0, u));
+      x = t0p(u);
       y = t3p(u);
     } else {
-      const Fw t1 = T(1, u), t2 = t2p(u);
-      const Fw t1p = subk(t, t1, t2, K48), z3 = add(t1, t2);
+      const Fw t1u = t1(u), t2 = t2p(u);
+      const Fw t1p = subk(t, t1u, t2, k1), z3 = add(t1u, t2);
       if (k == 0) {
         x = t3p(u);
         y = t1p;
@@ -270,6 +265,86 @@ __device__ __forceinline__ void cadd(const CurveW& t, const Group<G>& grp,
     const Fw a = grp.ld(F + 2 * S * c + u), b = grp.ld(F + S * (2 * c + 1) + u);
     out(c, u, c == 0 ? subk(t, a, b, K2) : add(a, b));
   });
+}
+
+// p + q (cadd_body), out(c, u, v) taking component u of coordinate c of
+// the sum.
+template <int S, int G, class Out>
+__device__ __forceinline__ void cadd(const CurveW& t, const Group<G>& grp,
+                                     const Pt& p, const Pt& q, Out out) {
+  using L = CurveSlots<S>;
+  constexpr int M = L::kMid;
+  // t0 = X1 X2, t1 = Y1 Y2, t2 = Z1 Z2, t3 = (X1 + Y1)(X2 + Y2),
+  // t4 = (Y1 + Z1)(Y2 + Z2), t5 = (X1 + Z1)(X2 + Z2)
+  products<S>(t, grp, 6, L::kLeaf, M, [&](int k, int u, Fw& x, Fw& y) {
+    const auto side = [&](const Pt& r) {
+      const Fw a = coord(grp, r, 0x010210 >> (4 * k) & 15, u);
+      return k < 3 ? a : add(a, coord(grp, r, 0x221 >> (4 * (k - 3)) & 15, u));
+    };
+    x = side(p);
+    y = side(q);
+  });
+  const auto T = [&](int i, int u) { return grp.ld(M + S * i + u); };
+  add_finish<S>(
+      t, grp, [&](int u) { return triple(T(0, u)); },     // t0' = 3 t0 < 6p
+      [&](int u) { return T(1, u); },
+      [&](int u) {                                        // b3(t2) < 48p
+        return b3<S>(t, [&](int w) { return T(2, w); }, u, K2);
+      },
+      [&](int u) {                                        // < 6p
+        return subk(t, T(3, u), add(T(0, u), T(1, u)), K4);
+      },
+      [&](int u) {                                        // < 6p
+        return subk(t, T(4, u), add(T(1, u), T(2, u)), K4);
+      },
+      [&](int u) {                                        // b3(Y3r) < 168p
+        return b3<S>(t, [&](int w) {
+          return subk(t, T(5, w), add(T(0, w), T(2, w)), K4);
+        }, u, K8);
+      },
+      K48, out);
+}
+
+// p + a (cmadd_body) for an accumulator p at slots kP (coordinates < 4p)
+// and an affine point a = (x2, y2) at slots kQ (< 2p) that is not at
+// infinity; out(c, u, v) takes component u of coordinate c of the sum.
+// Its twin is curve_w32.cuh's one-thread cmadd_body (the row scan): the
+// same formulas and k p offsets (K4 for t3, K96 for t1', K4 and K8 in the
+// two b3), written there as one chain. An edit to an offset here is made
+// there too; chip_smoke.py holds both kernels against their plain versions.
+template <int S, int G, class Out>
+__device__ __forceinline__ void cmadd(const CurveW& t, const Group<G>& grp,
+                                      Out out) {
+  using L = CurveSlots<S>;
+  constexpr int M = L::kMid;
+  const auto P = [&](int c, int u) { return grp.ld(L::kP + S * c + u); };
+  const auto A = [&](int c, int u) { return grp.ld(L::kQ + S * c + u); };
+  // t0 = X1 x2, t1 = Y1 y2, t3 = (x2 + y2)(X1 + Y1), y2 Z1, x2 Z1
+  products<S>(t, grp, 5, L::kLeaf, M, [&](int k, int u, Fw& x, Fw& y) {
+    if (k == 2) {
+      x = add(A(0, u), A(1, u));
+      y = add(P(0, u), P(1, u));
+    } else {
+      x = k < 2 ? P(k, u) : A(4 - k, u);
+      y = k < 2 ? A(k, u) : P(2, u);
+    }
+  });
+  const auto T = [&](int i, int u) { return grp.ld(M + S * i + u); };
+  add_finish<S>(
+      t, grp, [&](int u) { return triple(T(0, u)); },     // t0' = 3 t0 < 6p
+      [&](int u) { return T(1, u); },
+      [&](int u) {                                        // b3(Z1) < 96p
+        return b3<S>(t, [&](int w) { return P(2, w); }, u, K4);
+      },
+      [&](int u) {                                        // < 6p
+        return subk(t, T(2, u), add(T(0, u), T(1, u)), K4);
+      },
+      [&](int u) { return add(T(3, u), P(1, u)); },       // t4 < 6p
+      [&](int u) {                                        // b3(Y3r) < 168p
+        return b3<S>(t, [&](int w) { return add(T(4, w), P(0, w)); }, u,
+                     K8);
+      },
+      K96, out);
 }
 
 }  // namespace cw

@@ -17,30 +17,31 @@
 // bucket differences and the window folds, and one cdbl_n_add per window
 // (n_dbl = the window) to combine the windows.
 //
-// Work split: one thread per lane, but for cdbl_n_add (below). A G1
-// coordinate batch is int64 [25, M] (limb i of lane l at i M + l), a G2
-// coordinate batch [25, 2, M], the affine infinity flags one byte per
-// lane, so the threads of a warp read neighbouring words.
+// Work split: a group of threads per lane for cmadd and cdbl_n_add, one
+// thread per lane for cadd and cmsm_row_scan (below). A G1 coordinate
+// batch is int64 [25, M] (limb i of lane l at i M + l), a G2 coordinate
+// batch [25, 2, M], the affine infinity flags one byte per lane, so the
+// threads of a warp read neighbouring words.
 //
-// cmadd runs curve.cuh's group law on 16-bit limbs, one limb per 32-bit
-// word, in blocks of 32 threads. What bounds it: each of its products
-// (mont_mul, 1,250 16x16-bit multiply-adds) reads its operands from the
-// thread's local memory through an out-of-line call; at the few thousand
-// lanes of the scalar multiplications one thread per lane leaves most of
-// the card idle, and each thread's chain of dependent products sets the
-// time.
-//
-// cdbl_n_add has the same bound at its widths (668 G2 lanes for
-// verify-ppe-334's window combination, 1336 for the commits' scalar
-// multiplications, one lane for msm-g1-65536's), with a longer chain: 8 n
-// + 12 products a lane (x5 on G2). Its design (curve_group_w32.cuh over
+// cmadd and cdbl_n_add run at widths where one thread per lane leaves
+// most of the card idle: cmadd builds each scalar multiplication's window
+// table (14 launches in a row, each on the last one's output: 1336 G1 or
+// G2 lanes for the commits, 4096 G1 lanes for scalar-mul-g1-4096, a few
+// dozen to a few hundred on the prove paths), cdbl_n_add takes its 64
+// window steps and verify-ppe-334's window combination (668 G2 lanes),
+// msm-g1-65536's over one lane. There each lane's chain of dependent
+// products sets the time: 11 a mixed add (55 on G2), 8 n + 12 for
+// cdbl_n_add (x5 on G2). Their design (curve_group_w32.cuh over
 // group_w32.cuh and field_w32.cuh) is for that bound: Fq as 13 packed
 // words at R = 2^400 as below, and a group of G threads working each lane
-// (G = kCdblGroupG1, kCdblGroupG2), the lane's values in slots of the
-// group's shared memory, the independent products of each level of the
-// doubling and the add taken side by side: a G2 doubling is 4 rounds of
-// products at G = 16 where one thread makes 40 (utils/curve_variants.py
-// --groups times G = 4 to 32). Blocks of kCdblLanes lanes; a ragged
+// (G = kCdblGroupG1 = 4 on G1, kCdblGroupG2 = 16 on G2, for both), the
+// lane's values in slots of the group's shared memory, the independent
+// products of each level of the formulas taken side by side: a G2 mixed
+// add is 5 rounds of products at G = 16 where one thread makes 55, a G2
+// doubling 4 where one thread makes 40 (utils/curve_variants.py --groups
+// times G = 2 to 32: no other G gains 1.3x on cmadd at its path shapes,
+// where a launch takes 17-30 us). The mixed add shares the add's last two
+// levels (add_finish) with cdbl_n_add. Blocks of kCdblLanes lanes; a ragged
 // block's inactive lanes leave as whole groups.
 //
 // cadd and cmsm_row_scan carry the MSM's widest launches (up to 2.76 M G2
@@ -82,19 +83,13 @@
 
 #include <cstdint>
 
-#include "curve.cuh"
 #include "curve_group_w32.cuh"
 #include "curve_w32.cuh"
-#include "field.cuh"
 #include "field_w32.cuh"
 #include "group_w32.cuh"
 
 namespace {
 
-using gs::curve::FieldQ;
-using gs::curve::Fq2A;
-using gs::curve::FqA;
-using gs::curve::N;
 using gs::cw::CurveW;
 using gs::w32::Column;
 using gs::w32::FieldW;
@@ -102,33 +97,52 @@ using gs::w32::Fw;
 using gs::w32::kWords;
 using gs::w32::lane_words;
 
-constexpr int kThreads = 32;    // cmadd
+constexpr int N = gs::w32::kLimbs;   // 16-bit limbs at the boundary
 constexpr int kWThreads = 64;   // cadd, cmsm_row_scan
-// cdbl_n_add: threads a lane on G1 and on G2, and lanes a block
+// cdbl_n_add and cmadd: threads a lane on G1 and on G2, and lanes a block
 constexpr int kCdblGroupG1 = 4;
 constexpr int kCdblGroupG2 = 16;
 constexpr int kCdblLanes = 8;
 
-// Complete projective + affine add: (X1 : Y1 : Z1) + (x2, y2), the
-// accumulator unchanged where the affine point is at infinity.
-template <class F>
-__global__ void __launch_bounds__(kThreads)
-cmadd_kernel(const __grid_constant__ FieldQ f, const int64_t* X1,
+// Complete projective + affine add (cmadd): (X1 : Y1 : Z1) + (x2, y2),
+// the accumulator unchanged where the affine point is at infinity; S Fq
+// components a coordinate (accumulator < 4p, affine < 2p, out < 4p). A
+// group of G threads works a lane, over its slots in shared memory
+// (curve_group_w32.cuh cmadd). The flag is the lane's, so the whole group
+// takes the same branch: a flagged lane copies its accumulator's limbs (the
+// reference's select) and makes no product.
+template <int S, int G>
+__global__ void __launch_bounds__(kCdblLanes * G)
+cmadd_kernel(const __grid_constant__ CurveW t, const int64_t* X1,
              const int64_t* Y1, const int64_t* Z1, const int64_t* x2,
              const int64_t* y2, const uint8_t* ainf, int64_t* oX,
              int64_t* oY, int64_t* oZ, int64_t m) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  using L = gs::cw::CurveSlots<S>;
+  extern __shared__ uint32_t smem[];
+  const int rank = threadIdx.x / G;
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kCdblLanes + rank;
   if (lane >= m) return;
-  typename F::T X, Y, Z, x, y, X3, Y3, Z3;
-  F::load(X1, m, lane, X);
-  F::load(Y1, m, lane, Y);
-  F::load(Z1, m, lane, Z);
-  F::load(x2, m, lane, x);
-  F::load(y2, m, lane, y);
-  gs::curve::cmadd_body<F>(f, X, Y, Z, x, y, ainf[lane] != 0, X3, Y3, Z3);
-  F::store(oX, m, lane, X3);
-  F::store(oY, m, lane, Y3);
-  F::store(oZ, m, lane, Z3);
+  const auto grp = gs::w32::group_of<G>(smem + rank * lane_words(L::kSlots));
+  if (ainf[lane] != 0) {
+    constexpr int kRows = gs::w32::kLimbs * S;     // limb rows a coordinate
+    gs::w32::level(grp, 3 * kRows, [&](int k) {
+      const int c = k / kRows;
+      const int64_t at = static_cast<int64_t>(k % kRows) * m + lane;
+      (c == 0 ? oX : c == 1 ? oY : oZ)[at] = (c == 0 ? X1 : c == 1 ? Y1
+                                                               : Z1)[at];
+    });
+    return;
+  }
+  gs::w32::level(grp, 5 * S, [&](int k) {      // P, then (x2, y2) at Q
+    const int c = k / S;
+    const int64_t* src = c == 0 ? X1 : c == 1 ? Y1 : c == 2 ? Z1
+                       : c == 3 ? x2 : y2;
+    grp.st(c < 3 ? L::kP + k : L::kQ + k - 3 * S,
+           gs::w32::load_coef(src, S, k % S, m, lane));
+  });
+  gs::cw::cmadd<S>(t, grp, [&](int c, int u, const Fw& v) {
+    gs::w32::store_coef(c == 0 ? oX : c == 1 ? oY : oZ, S, u, m, lane, v);
+  });
 }
 
 // n_dbl complete doublings of P, then P + Q (cdbl_n_add), S Fq components
@@ -316,20 +330,6 @@ cmsm_row_scan_kernel(const __grid_constant__ FieldW f, int rows,
   gs::w32::gstore<S>(tZ, m, lane, col.ld<S>(A + 2 * V));
 }
 
-unsigned grid_of(int64_t m) {
-  return static_cast<unsigned>((m + kThreads - 1) / kThreads);
-}
-
-template <class F>
-int launch_cmadd(const FieldQ& f, const int64_t* X1, const int64_t* Y1,
-                 const int64_t* Z1, const int64_t* x2, const int64_t* y2,
-                 const uint8_t* ainf, int64_t* oX, int64_t* oY, int64_t* oZ,
-                 int64_t m, cudaStream_t stream) {
-  cmadd_kernel<F><<<grid_of(m), kThreads, 0, stream>>>(
-      f, X1, Y1, Z1, x2, y2, ainf, oX, oY, oZ, m);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Once per kernel: allow its dynamic shared memory above 48 KB, and ask
 // for the largest shared-memory carve-out of the SM's 256 KB, so that four
 // blocks fit.
@@ -391,6 +391,22 @@ int launch_cdbl_n_add(const CurveW& t, int n_dbl, const int64_t* X1,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int S, int G>
+int launch_cmadd(const CurveW& t, const int64_t* X1, const int64_t* Y1,
+                 const int64_t* Z1, const int64_t* x2, const int64_t* y2,
+                 const uint8_t* ainf, int64_t* oX, int64_t* oY, int64_t* oZ,
+                 int64_t m, cudaStream_t stream) {
+  constexpr int bytes =
+      kCdblLanes * lane_words(gs::cw::CurveSlots<S>::kSlots) * 4;
+  static const cudaError_t attr = allow_smem(cmadd_kernel<S, G>, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cmadd_kernel<S, G>
+      <<<static_cast<unsigned>((m + kCdblLanes - 1) / kCdblLanes),
+         kCdblLanes * G, bytes, stream>>>(t, X1, Y1, Z1, x2, y2, ainf, oX,
+                                          oY, oZ, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -401,11 +417,13 @@ int gs_cmadd(int nl, int ns, const int64_t* X1, const int64_t* Y1,
              int64_t m, const uint32_t* p, const uint32_t* one, uint32_t n0,
              void* stream) {
   if (nl != N || (ns != 1 && ns != 2)) return -1;
-  const FieldQ f = gs::make_field<N>(p, one, n0);
+  const CurveW t = gs::cw::make_curve_w(p, one, n0);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return ns == 1
-      ? launch_cmadd<FqA>(f, X1, Y1, Z1, x2, y2, ainf, oX, oY, oZ, m, s)
-      : launch_cmadd<Fq2A>(f, X1, Y1, Z1, x2, y2, ainf, oX, oY, oZ, m, s);
+      ? launch_cmadd<1, kCdblGroupG1>(t, X1, Y1, Z1, x2, y2, ainf, oX, oY,
+                                      oZ, m, s)
+      : launch_cmadd<2, kCdblGroupG2>(t, X1, Y1, Z1, x2, y2, ainf, oX, oY,
+                                      oZ, m, s);
 }
 
 int gs_cdbl_n_add(int nl, int ns, int n_dbl, const int64_t* X1,

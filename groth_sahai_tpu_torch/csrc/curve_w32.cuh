@@ -2,10 +2,10 @@
 // a = 0) of the kernels cadd and cmsm_row_scan, over the packed-word field
 // core field_w32.cuh, for G1 (S = 1 Fq component) and G2 (S = 2, Fq2).
 //
-// The formulas, k p offsets and bounds are curve.cuh's cadd_body and
-// cmadd_body (the reference's _cadd_body and _cmadd_body), step for step;
-// every step makes the same integer, so the 16-bit limbs at the boundary
-// equal curve.cuh's and the plain versions'. What differs is where values
+// The formulas, k p offsets and bounds are the reference's _cadd_body and
+// _cmadd_body (groth_sahai_tpu/ops/pallas_curve.py), step for step; every
+// step makes the same integer, so the 16-bit limbs at the boundary equal
+// the plain versions' (ops/cuda_curve.py). What differs is where values
 // live. A body is inlined and indexes its words with constants, so its
 // working values stay in registers, and its products call the one
 // out-of-line mont, operands and result in registers; the few values that
@@ -175,7 +175,7 @@ __device__ __forceinline__ void gstore(int64_t* dst, int64_t m,
   }
 }
 
-// The three products that close both bodies (RCB16), curve.cuh's finish:
+// The three products that close both bodies (RCB16), the reference's:
 //   X3 = t3 t1 - t4 Y3 (< 4p), Y3 = t1 Z3 + Y3 t0 (< 4p),
 //   Z3 = Z3 t4 + t0 t3 (< 4p).
 // In: t3 < 6p in slot T3, t4 < 6p in slot T4, t1 and Z3 < 98p, Y3 < 144p,
@@ -234,7 +234,9 @@ __device__ __forceinline__ void cadd_body(const FieldW& f,
 // and y2 are read for the last time. Bounds: t2 < 96p, t1 and Z3 < 98p,
 // Y3 < 144p; worst product pairs (196)(196) and (12)(288) (units of p, Fq2
 // Karatsuba sums included) -- inside the 2^16 p^2 cap. 11 Montgomery
-// products (55 for Fq2).
+// products (55 for Fq2). Its twin is curve_group_w32.cuh's grouped cw::cmadd
+// (the cmadd kernel): the same formulas and k p offsets, taken there as
+// levels of a group. An edit to an offset here is made there too.
 template <int S, int B, class Then>
 __device__ __forceinline__ void cmadd_body(const FieldW& f,
                                            const Column<B>& col, int X2,

@@ -1,7 +1,7 @@
 // In-thread Fq arithmetic on packed 32-bit words, for the Hopper kernels
 // on packed words: cadd and cmsm_row_scan (curve_w32.cuh), cdbl_n_add
-// (curve_group_w32.cuh), fq12_mul, cyc_pow and miller_iter_dbl
-// (tower_w32.cuh).
+// and cmadd (curve_group_w32.cuh), fq12_mul, cyc_pow, f12_pow_dyn and the
+// Miller iterations (tower_w32.cuh).
 //
 // An Fq value is the integer of the port's 25 16-bit limbs (Montgomery form,
 // R = 2^400) held in 13 uint32 words, little-endian: word k = limb 2k |
@@ -14,8 +14,8 @@
 // n0w = -p^-1 mod 2^32) plus one step of 2^16 (with n0 = -p^-1 mod 2^16)
 // reach it as field.cuh's 25 steps of 2^16 do. add, sub and mul12 are
 // functions of the integer values alone, so a body written with them gives
-// the limbs of the same body in 16-bit limbs (curve.cuh, and the plain
-// versions in ops/cuda_curve.py).
+// the limbs of the same body in 16-bit limbs (the plain versions in
+// ops/cuda_curve.py and ops/cuda_tower.py).
 //
 // Products are 32x32-bit multiply-adds in carry chains (PTX mad.lo.cc /
 // madc.hi.cc / addc), 2 (13^2 + 13 x 12) = 650 word products' halves per

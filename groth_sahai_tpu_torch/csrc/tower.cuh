@@ -1,11 +1,11 @@
-// In-thread Fq2 / Fq6 / Fq12 formulas of the fused tower kernels.
+// In-thread Fq2 / Fq12 formulas of the one-thread tower kernels cyc_sqr,
+// miller_dbl_step and miller_add_step.
 //
 // Port of the in-kernel tower math of groth_sahai_tpu/ops/pallas_tower.py
-// (_f2_mul, _f6_mul, _f12_mul, _f12_post_red, _cyc_sqr_body, and the
-// Miller-iteration bodies at the end of this file), over the
-// field library field.cuh. One thread owns one Fq12 element: 12 Fq
-// coefficients of 25 limbs, indexed [i][j][u] for w^i v^j u^u (the port's
-// coefficient index 6i + 2j + u).
+// (_f2_mul, _f12_post_red, _cyc_sqr_body, and the Miller step bodies at the
+// end of this file), over the field library field.cuh. One thread owns one
+// Fq12 element: 12 Fq coefficients of 25 limbs, indexed [i][j][u] for
+// w^i v^j u^u (the port's coefficient index 6i + 2j + u).
 //
 // Every Fq product is a narrow-domain Montgomery product (`mm`, output
 // < 2p); the Karatsuba combinations are exact adds and `sub_k` chains with
@@ -15,14 +15,12 @@
 // formulas (the plain versions in ops/cuda_tower.py) gives the same limbs.
 //
 // Bounds (pallas_tower.py's audit): Fq2 mul c0 < 4p, c1 < 6p (inputs
-// < 128p); Fq6 mul c0 < 42p, c1 < 30p, c2 < 24p; Fq12 mul raw c0 < 90p,
-// c1 < 126p. Operand sums grow x8 from Fq12 down to Fq2, so an Fq12
-// product needs bound(a) * bound(b) <= 1024 p^2.
+// < 128p).
 //
 // An Fq12 value is 300 words: too many for registers, so the values live
 // in the thread's local memory and `mm` is one out-of-line function (a
-// single copy of the 25 x 25 product code, called 66 times per Fq12
-// product) to keep the compiled code small.
+// single copy of the 25 x 25 product code) to keep the compiled code small.
+// The grouped kernels' formulas are tower_w32.cuh's.
 #pragma once
 
 #include <cstdint>
@@ -35,18 +33,12 @@ namespace tower {
 constexpr int N = 25;  // Fq limbs
 using Fp = uint32_t[N];
 using Fp2 = uint32_t[2][N];
-using Fp6 = uint32_t[3][2][N];
 using Fp12 = uint32_t[2][3][2][N];
 using FieldQ = Field<N>;
 
 __device__ __noinline__ void mm(const FieldQ& f, const Fp& a, const Fp& b,
                                 Fp& out) {
   mont_mul<N>(f, a, b, out);
-}
-
-__device__ __forceinline__ void copy(const Fp& a, Fp& out) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) out[j] = a[j];
 }
 
 __device__ __forceinline__ void f2_add(const Fp2& a, const Fp2& b, Fp2& c) {
@@ -81,64 +73,6 @@ __device__ __noinline__ void f2_mul(const FieldQ& f, const Fp2& a,
   sub_k<N>(t2, t1, 2, f.p, c[1]);
 }
 
-// Karatsuba Fq6 product: c0 < 42p, c1 < 30p, c2 < 24p.
-__device__ __noinline__ void f6_mul(const FieldQ& f, const Fp6& a,
-                                    const Fp6& b, Fp6& c) {
-  Fp2 t0, t1, t2, s1, s2, s3, x, y;
-  f2_mul(f, a[0], b[0], t0);
-  f2_mul(f, a[1], b[1], t1);
-  f2_mul(f, a[2], b[2], t2);
-  f2_add(a[1], a[2], x);
-  f2_add(b[1], b[2], y);
-  f2_mul(f, x, y, s1);
-  f2_add(a[0], a[1], x);
-  f2_add(b[0], b[1], y);
-  f2_mul(f, x, y, s2);
-  f2_add(a[0], a[2], x);
-  f2_add(b[0], b[2], y);
-  f2_mul(f, x, y, s3);
-  // c0 = t0 + xi(s1 - t1 - t2)
-  f2_sub(f, s1, t1, 6, s1);
-  f2_sub(f, s1, t2, 6, s1);
-  f2_xi(f, s1, 18, x);
-  f2_add(t0, x, c[0]);
-  // c1 = s2 + xi(t2) - t0 - t1
-  f2_xi(f, t2, 6, x);
-  f2_add(s2, x, y);
-  f2_sub(f, y, t0, 6, y);
-  f2_sub(f, y, t1, 6, c[1]);
-  // c2 = s3 + t1 - t0 - t2
-  f2_add(s3, t1, y);
-  f2_sub(f, y, t0, 6, y);
-  f2_sub(f, y, t2, 6, c[2]);
-}
-
-// Fq12 Karatsuba over Fq6, raw: c0 = t0 + v t1 < 90p, c1 = ts - t0 - t1
-// < 126p. `c` must not be `a` or `b`.
-__device__ __forceinline__ void f12_mul_raw(const FieldQ& f, const Fp12& a,
-                                            const Fp12& b, Fp12& c) {
-  Fp6 t0, t1, ts, x, y;
-  f6_mul(f, a[0], b[0], t0);
-  f6_mul(f, a[1], b[1], t1);
-#pragma unroll 1
-  for (int j = 0; j < 3; ++j) {
-    f2_add(a[0][j], a[1][j], x[j]);
-    f2_add(b[0][j], b[1][j], y[j]);
-  }
-  f6_mul(f, x, y, ts);
-  // v t1 = (xi(t1[2]), t1[0], t1[1]); xi(t1[2] < 24p) < 48p
-  Fp2 w;
-  f2_xi(f, t1[2], 24, w);
-  f2_add(t0[0], w, c[0][0]);
-  f2_add(t0[1], t1[0], c[0][1]);
-  f2_add(t0[2], t1[1], c[0][2]);
-#pragma unroll 1
-  for (int j = 0; j < 3; ++j) {
-    f2_sub(f, ts[j], t0[j], 42, w);
-    f2_sub(f, w, t1[j], 42, c[1][j]);
-  }
-}
-
 // Every coefficient times R mod p (Montgomery): < 2p. In place.
 __device__ __forceinline__ void post_red(const FieldQ& f, Fp12& c) {
 #pragma unroll 1
@@ -149,13 +83,6 @@ __device__ __forceinline__ void post_red(const FieldQ& f, Fp12& c) {
       mm(f, c[i][j][1], f.one, c[i][j][1]);
     }
   }
-}
-
-// a b post-reduced to < 2p (pallas_tower._f12_mul_red).
-__device__ __noinline__ void f12_mul_red(const FieldQ& f, const Fp12& a,
-                                         const Fp12& b, Fp12& c) {
-  f12_mul_raw(f, a, b, c);
-  post_red(f, c);
 }
 
 // Complex square of one Fq2 value: ((a0 + a1)(a0 - a1) < 2p, 2 a0 a1 < 4p).
@@ -229,28 +156,13 @@ __device__ __noinline__ void cyc_sqr_red(const FieldQ& f, const Fp12& a,
   post_red(f, out);
 }
 
-// ------------------------------------------- the Miller-iteration bodies
+// ------------------------------------------------ the Miller step bodies
 //
-// pallas_tower.py's in-kernel helpers of the fused Miller iterations
-// (_f12_sqr_red, _f2_mulred, _f2_sqrred, _f2_mul_fq,
-// _dbl_step_body, _add_step_body, _sparse_line_mul), step for step: the
-// same k p offsets and the same post-reductions, so the limbs equal the
+// pallas_tower.py's in-kernel helpers of the Miller steps (_f2_mulred,
+// _f2_sqrred, _f2_mul_fq, _dbl_step_body, _add_step_body), step for
+// step: the same k p offsets and the same post-reductions, so the limbs equal the
 // reference's. Every Fq2 product of the point steps is post-reduced to
 // < 2p (mont-by-one), as in the reference.
-
-// a a post-reduced to < 2p (_f12_sqr_red); input coefficients < 2p.
-__device__ __forceinline__ void f12_sqr_red(const FieldQ& f, const Fp12& a,
-                                            Fp12& c) {
-  f12_mul_red(f, a, a, c);
-}
-
-// c = a, every limb.
-__device__ __forceinline__ void f12_copy(const Fp12& a, Fp12& c) {
-  const uint32_t* x = &a[0][0][0][0];
-  uint32_t* z = &c[0][0][0][0];
-#pragma unroll 1
-  for (int i = 0; i < 12 * N; ++i) z[i] = x[i];
-}
 
 // Fq2 product, both components post-reduced to < 2p (_f2_mulred; the
 // square _f2_sqrred is f2_mulred(a, a)).
@@ -357,60 +269,6 @@ __device__ __noinline__ void add_step_body(const FieldQ& f, const Fp2& X,
   f2_mulred(f, l2, yq, u);
   f2_sub(f, t, u, 2, l0);                      // j < 4p
   f2_neg(f, theta, 16, l1);                    // -theta < 16p
-}
-
-// (c0 + c1 v + c2 v^2)(a + b v): coefficients < 18p (f6_mul_ab).
-__device__ __noinline__ void f6_mul_ab(const FieldQ& f, const Fp6& c6,
-                                       const Fp2& a, const Fp2& b, Fp6& r) {
-  Fp2 t, w;
-  f2_mul(f, c6[0], a, r[0]);                   // t00
-  f2_mul(f, c6[2], b, t);                      // t21
-  f2_xi(f, t, 6, w);
-  f2_add(r[0], w, r[0]);                       // t00 + xi(t21) < 18p
-  f2_mul(f, c6[1], a, r[1]);                   // t10
-  f2_mul(f, c6[0], b, t);                      // t01
-  f2_add(r[1], t, r[1]);                       // < 12p
-  f2_mul(f, c6[2], a, r[2]);                   // t20
-  f2_mul(f, c6[1], b, t);                      // t11
-  f2_add(r[2], t, r[2]);                       // < 12p
-}
-
-// (c0 + c1 v + c2 v^2)(c v) = (xi(c2 c), c0 c, c1 c): < 12p (f6_mul_cv).
-__device__ __noinline__ void f6_mul_cv(const FieldQ& f, const Fp6& c6,
-                                       const Fp2& c, Fp6& r) {
-  Fp2 t;
-  f2_mul(f, c6[2], c, t);
-  f2_xi(f, t, 6, r[0]);
-  f2_mul(f, c6[0], c, r[1]);
-  f2_mul(f, c6[1], c, r[2]);
-}
-
-// f (la + lb v + lc v w), post-reduced to < 2p (_sparse_line_mul): f < 2p,
-// la < 50p, lb, lc < 2p. 15 Fq2 products (45 Montgomery products) and 12
-// post-reductions; before them out0 < 54p, out1 < 54p. `out` must not be
-// `fv`.
-__device__ __noinline__ void sparse_line_mul(const FieldQ& f, const Fp12& fv,
-                                             const Fp2& la, const Fp2& lb,
-                                             const Fp2& lc, Fp12& out) {
-  Fp6 t0, t1, s, ts;
-  Fp2 w;
-  f6_mul_ab(f, fv[0], la, lb, t0);             // < 18p
-  f6_mul_cv(f, fv[1], lc, t1);                 // < 12p
-#pragma unroll 1
-  for (int j = 0; j < 3; ++j) f2_add(fv[0][j], fv[1][j], s[j]);   // < 4p
-  f2_add(lb, lc, w);
-  f6_mul_ab(f, s, la, w, ts);                  // < 18p
-  // out0 = t0 + v t1 ; v t1 = (xi t1[2], t1[0], t1[1])
-  f2_xi(f, t1[2], 12, w);
-  f2_add(t0[0], w, out[0][0]);                 // < 18p + 36p
-  f2_add(t0[1], t1[0], out[0][1]);
-  f2_add(t0[2], t1[1], out[0][2]);
-#pragma unroll 1
-  for (int j = 0; j < 3; ++j) {
-    f2_sub(f, ts[j], t0[j], 18, w);
-    f2_sub(f, w, t1[j], 18, out[1][j]);        // < 54p
-  }
-  post_red(f, out);
 }
 
 }  // namespace tower

@@ -21,9 +21,9 @@
 //
 // Work split: an Fq12 batch is int64 [25, 12, M] (limb i of coefficient c
 // of lane l at (12 i + c) M + l), an Fq2 batch [25, 2, M], an Fq batch
-// [25, M], Fr scalars [17, M]. Four kernels run one thread per lane, as in
-// fp_kernels.cu, in blocks of 32 threads that spread the few thousand lanes
-// of these calls over all 132 SMs.
+// [25, M], Fr scalars [17, M]. Three kernels (cyc_sqr and the two steps)
+// run one thread per lane, as in fp_kernels.cu, in blocks of 32 threads
+// that spread the few thousand lanes of these calls over all 132 SMs.
 //
 // What bounds them on the H100: an Fq12 product is 66 Montgomery products
 // (54 Karatsuba + 12 post-reductions) per lane on 7.2 KB of int64 limbs
@@ -35,9 +35,8 @@
 // batches the real limit is the latency of one thread's long chain of
 // products, each about 5.5 us.
 //
-// fq12_mul, cyc_pow, miller_iter_dbl and miller_iter_add, the four that
-// lose the most time on the verifier's path, are designed for that limit
-// (tower_w32.cuh over group_w32.cuh):
+// fq12_mul, cyc_pow, f12_pow_dyn, miller_iter_dbl and miller_iter_add are
+// designed for that limit (tower_w32.cuh over group_w32.cuh):
 //   * an Fq value is 13 packed 32-bit words at the same R = 2^400, and
 //     every product is field_w32.cuh's out-of-line `mont` with its
 //     operands and result in registers, so the limbs at the boundary do
@@ -50,7 +49,13 @@
 //     iteration) to the levels' rounds of products: a cyclotomic square 2
 //     and an Fq12 product 3 at cyc_pow's G = 32 (146 for e = |x|), a
 //     doubling iteration 25 and an addition iteration 17 at G = 8, an Fq12
-//     product 5 at fq12_mul's G = 16.
+//     product 5 at fq12_mul's G = 16; f12_pow_dyn's 272 squares and its
+//     products on set bits are Fq12 products of 5 rounds each at its
+//     G = 16 (about 2,000 rounds for a random 255-bit scalar where one
+//     thread made 26,900 products). Every thread of a group takes the same
+//     scalar bit, so no group diverges. cyc_pow and f12_pow_dyn run one
+//     square-and-multiply loop (pow_body), each with its exponent's bits
+//     and its square (cyclotomic, or the generic product with B = A).
 //     G is the fastest of 4, 8, 16 and 32 for each kernel on the paths'
 //     shapes (utils/tower_variants.py): the verifier's cyc_pow runs over 4
 //     lanes, where nothing else is on the card and only a shorter chain
@@ -60,11 +65,15 @@
 //     earn a lane rule); fq12_mul runs over both (the Miller product tree from
 //     2048 lanes down to 4, the final exponentiation's products over 4),
 //     and G = 16 comes within 1.33x of the best G at each width;
+//     f12_pow_dyn runs over 4096 and 1024 lanes (gt-exp-4096), where G = 16
+//     is the fastest at 1024 and within 1.09x of G = 4 at 4096 (there the
+//     card is full, and a larger G leaves more of a warp's threads idle in
+//     the levels of 9 and 12 tasks: G = 32 is 1.16x slower);
 //   * the lane's values (its Fq12 values, R, the leaves and Karatsuba
 //     values of each level) live in the group's shared memory, 13 words
-//     an Fq slot: 108 slots for fq12_mul and cyc_pow, 133 for the
-//     doubling iteration, 118 for the addition iteration;
-//     blocks of kGroupLanes lanes (55 KB of shared memory a block for the
+//     an Fq slot: 108 slots for fq12_mul, cyc_pow and f12_pow_dyn, 133
+//     for the doubling iteration, 118 for the addition iteration; blocks
+//     of kGroupLanes lanes (55 KB of shared memory a block for the
 //     doubling iteration: four blocks an SM hold verify's 4096 lanes in
 //     one wave). Inactive lanes of a ragged block leave as whole groups.
 //
@@ -96,12 +105,17 @@ constexpr int kFq12MulGroup = 16;
 constexpr int kCycPowGroup = 32;
 constexpr int kDblGroup = 8;
 constexpr int kAddGroup = 8;
+constexpr int kPowDynGroup = 16;
 constexpr int kGroupLanes = 8;
 
-// cyc_pow's slots: a, two accumulators, the leaves, the Fq6 values;
+// cyc_pow's and f12_pow_dyn's slots: a, two accumulators, the leaves, the
+// Fq6 values;
 // fq12_mul's: a, b, the product, the leaves, the Fq6 values.
 constexpr int kCycPowSlots = 12 + 12 + 12 + 54 + 18;
 constexpr int kFq12MulSlots = 12 + 12 + 12 + 54 + 18;
+// pow_body's slots in that layout
+constexpr int kPowX = 0, kPowAcc = 12, kPowTmp = 24, kPowLeaf = 36,
+              kPowT6 = 90;
 
 __device__ __forceinline__ void load12(const int64_t* src, int64_t m,
                                        int64_t lane, Fp12& x) {
@@ -150,43 +164,74 @@ fq12_mul_kernel(const __grid_constant__ TowerW t, const int64_t* a,
   });
 }
 
-// a^e for a static e < 2^64: 64 iterations from the Fq12 one (R mod p in
-// coefficient 0), each a post-reduced cyclotomic square and, on a set bit
-// of e (MSB first, leading zeros included), a post-reduced product with a
-// -- the sequence of pallas_tower._cyc_pow_kernel. A group of G threads
-// works a lane (tower_w32.cuh); the bit is the same for every thread, so
-// the branch does not diverge.
-template <int G>
-__global__ void __launch_bounds__(kGroupLanes * G)
-cyc_pow_kernel(const __grid_constant__ TowerW t, const int64_t* a,
-               uint64_t e, int64_t* out, int64_t m) {
+// The square-and-multiply of cyc_pow and f12_pow_dyn
+// (pallas_tower._cyc_pow_kernel, _f12_pow_dyn_kernel): from the Fq12 one
+// (R mod p in coefficient 0), over the exponent's bits MSB first, leading
+// zeros included, each round a post-reduced square of cur into tmp (E's
+// square) and, on a set bit, a post-reduced product of tmp and a into cur;
+// on a clear bit the two slot indices swap. The exponent is E::kLimbs
+// limbs of E::kLimbBits bits, each read once (E's limb); the bit is the
+// same for every thread of the group, so the branch does not diverge. A
+// group of G threads works a lane (tower_w32.cuh), in kCycPowSlots slots.
+template <int G, class E>
+__device__ __forceinline__ void pow_body(const TowerW& t, const int64_t* a,
+                                         const E& e, int64_t* out,
+                                         int64_t m) {
   extern __shared__ uint32_t smem[];
   const int rank = threadIdx.x / G;
   const int64_t lane = static_cast<int64_t>(blockIdx.x) * kGroupLanes + rank;
   if (lane >= m) return;
   const auto grp = gs::tw::group_of<G>(smem + rank * lane_words(kCycPowSlots));
-  constexpr int X = 0, ACC = 12, TMP = 24, LEAF = 36, T6 = 90;
   gs::tw::level(grp, 12, [&](int c) {
-    grp.st(X + c, load_coef(a, 12, c, m, lane));
+    grp.st(kPowX + c, load_coef(a, 12, c, m, lane));
     Fw z = gs::tw::words_of(t.f.one);
     if (c != 0) z = Fw{};
-    grp.st(ACC + c, z);
+    grp.st(kPowAcc + c, z);
   });
-  int cur = ACC, tmp = TMP;
+  int cur = kPowAcc, tmp = kPowTmp;
 #pragma unroll 1
-  for (int i = 63; i >= 0; --i) {
-    gs::tw::cyc_sqr(t, grp, cur, tmp, LEAF);
-    if ((e >> i) & 1) {
-      gs::tw::f12_mul(t, grp, tmp, X, cur, LEAF, T6);
-    } else {
-      const int s = cur;
-      cur = tmp;
-      tmp = s;
+  for (int i = E::kLimbs - 1; i >= 0; --i) {
+    const uint64_t limb = e.limb(i, m, lane);
+#pragma unroll 1
+    for (int b = E::kLimbBits - 1; b >= 0; --b) {
+      e.square(t, grp, cur, tmp);
+      if ((limb >> b) & 1) {
+        gs::tw::f12_mul(t, grp, tmp, kPowX, cur, kPowLeaf, kPowT6);
+      } else {
+        const int s = cur;
+        cur = tmp;
+        tmp = s;
+      }
     }
   }
   gs::tw::level(grp, 12, [&](int c) {
     store_coef(out, 12, c, m, lane, grp.ld(cur + c));
   });
+}
+
+// cyc_pow's exponent: a static e < 2^64, one limb of 64 bits; its square
+// the post-reduced cyclotomic one (a^e for a in the cyclotomic subgroup).
+struct CycExp {
+  static constexpr int kLimbs = 1;
+  static constexpr int kLimbBits = 64;
+  uint64_t e;
+  __device__ __forceinline__ uint64_t limb(int, int64_t, int64_t) const {
+    return e;
+  }
+  template <class Grp>
+  __device__ __forceinline__ void square(const TowerW& t, const Grp& grp,
+                                         int a, int out) const {
+    gs::tw::cyc_sqr(t, grp, a, out, kPowLeaf);
+  }
+};
+
+// a^e for a static e < 2^64 (pallas_tower._cyc_pow_kernel): 64 rounds of
+// pow_body.
+template <int G>
+__global__ void __launch_bounds__(kGroupLanes * G)
+cyc_pow_kernel(const __grid_constant__ TowerW t, const int64_t* a,
+               uint64_t e, int64_t* out, int64_t m) {
+  pow_body<G>(t, a, CycExp{e}, out, m);
 }
 
 __device__ __forceinline__ void load2(const int64_t* src, int64_t m,
@@ -358,39 +403,34 @@ miller_add_step_kernel(const __grid_constant__ FieldQ f, const int64_t* xin,
 
 constexpr int kScalarLimbs = 17;               // Fr standard-form limbs
 
-// a^s for a per-lane scalar s of 17 standard-form 16-bit limbs
-// (_f12_pow_dyn_kernel): 272 rounds from the Fq12 one (R mod p in
-// coefficient 0), MSB first, leading zeros included; each round a
-// post-reduced generic square, then, on a set bit, a post-reduced product
-// with a. The reference always multiplies and then selects (_f12_select);
-// on a clear bit the select keeps the square, so taking the square there
-// and skipping the product gives the same limbs. Lanes of a warp take
-// different bits, so the product diverges; its cost is the warp's busiest
-// lane.
-__global__ void __launch_bounds__(kThreads)
-f12_pow_dyn_kernel(const __grid_constant__ FieldQ f, const int64_t* a,
-                   const int64_t* s, int64_t* out, int64_t m) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (lane >= m) return;
-  Fp12 x, acc, t;
-  uint32_t sc[kScalarLimbs];
-  load12(a, m, lane, x);
-#pragma unroll
-  for (int i = 0; i < kScalarLimbs; ++i)
-    sc[i] = static_cast<uint32_t>(s[i * m + lane]);
-  uint32_t* w = &acc[0][0][0][0];
-#pragma unroll 1
-  for (int i = 0; i < 12 * N; ++i) w[i] = 0;
-  copy(f.one, acc[0][0][0]);
-#pragma unroll 1
-  for (int b = 16 * kScalarLimbs - 1; b >= 0; --b) {
-    f12_sqr_red(f, acc, t);
-    if ((sc[b >> 4] >> (b & 15)) & 1)
-      f12_mul_red(f, t, x, acc);
-    else
-      f12_copy(t, acc);
+// f12_pow_dyn's exponent: a per-lane scalar s of 17 standard-form 16-bit
+// limbs (Fr scalars [17, M]), 272 bits; its square the post-reduced
+// generic one (_f12_sqr_red = _f12_mul_red(acc, acc): f12_mul with B = A).
+// The reference always multiplies and then selects (_f12_select); on a
+// clear bit the select keeps the square, so taking the square there and
+// skipping the product gives the same limbs.
+struct DynExp {
+  static constexpr int kLimbs = kScalarLimbs;
+  static constexpr int kLimbBits = 16;
+  const int64_t* s;
+  __device__ __forceinline__ uint64_t limb(int i, int64_t m,
+                                           int64_t lane) const {
+    return static_cast<uint32_t>(s[i * m + lane]);
   }
-  store12(out, m, lane, acc);
+  template <class Grp>
+  __device__ __forceinline__ void square(const TowerW& t, const Grp& grp,
+                                         int a, int out) const {
+    gs::tw::f12_mul(t, grp, a, a, out, kPowLeaf, kPowT6);
+  }
+};
+
+// a^s for a per-lane scalar s (pallas_tower._f12_pow_dyn_kernel): 272
+// rounds of pow_body.
+template <int G>
+__global__ void __launch_bounds__(kGroupLanes * G)
+f12_pow_dyn_kernel(const __grid_constant__ TowerW t, const int64_t* a,
+                   const int64_t* s, int64_t* out, int64_t m) {
+  pow_body<G>(t, a, DynExp{s}, out, m);
 }
 
 unsigned grid_of(int64_t m) {
@@ -413,6 +453,21 @@ cudaError_t allow_smem(K kernel, int bytes) {
       : cudaFuncSetAttribute(kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
+}
+
+// One launch of a power kernel (cyc_pow_kernel<G>, f12_pow_dyn_kernel<G>)
+// over m lanes: a^e, e its exponent argument.
+template <int G, auto kKernel, class X>
+int launch_pow(const int64_t* a, X e, int64_t* out, int64_t m,
+               const uint32_t* p, const uint32_t* one, uint32_t n0,
+               void* stream) {
+  constexpr int bytes = kGroupLanes * lane_words(kCycPowSlots) * 4;
+  static const cudaError_t attr = allow_smem(kKernel, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kKernel<<<group_grid_of(m), kGroupLanes * G, bytes,
+            static_cast<cudaStream_t>(stream)>>>(
+      gs::tw::make_tower_w(p, one, n0, nullptr), a, e, out, m);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -438,13 +493,7 @@ int gs_cyc_pow(int nl, const int64_t* a, uint64_t e, int64_t* out, int64_t m,
                void* stream) {
   if (nl != N) return -1;
   constexpr int G = kCycPowGroup;
-  constexpr int bytes = kGroupLanes * lane_words(kCycPowSlots) * 4;
-  static const cudaError_t attr = allow_smem(cyc_pow_kernel<G>, bytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  cyc_pow_kernel<G><<<group_grid_of(m), kGroupLanes * G, bytes,
-                      static_cast<cudaStream_t>(stream)>>>(
-      gs::tw::make_tower_w(p, one, n0, nullptr), a, e, out, m);
-  return static_cast<int>(cudaGetLastError());
+  return launch_pow<G, cyc_pow_kernel<G>>(a, e, out, m, p, one, n0, stream);
 }
 
 int gs_cyc_sqr(int nl, const int64_t* a, int64_t* out, int64_t m,
@@ -502,10 +551,9 @@ int gs_f12_pow_dyn(int nl, int ns, const int64_t* a, const int64_t* s,
                    int64_t* out, int64_t m, const uint32_t* p,
                    const uint32_t* one, uint32_t n0, void* stream) {
   if (nl != N || ns != kScalarLimbs) return -1;
-  f12_pow_dyn_kernel<<<grid_of(m), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      gs::make_field<N>(p, one, n0), a, s, out, m);
-  return static_cast<int>(cudaGetLastError());
+  constexpr int G = kPowDynGroup;
+  return launch_pow<G, f12_pow_dyn_kernel<G>>(a, s, out, m, p, one, n0,
+                                              stream);
 }
 
 int gs_miller_dbl_step(int nl, const int64_t* xin, const int64_t* yin,

@@ -1,13 +1,13 @@
 // The Fq2 / Fq6 / Fq12 formulas of the kernels fq12_mul, cyc_pow,
-// miller_iter_dbl and miller_iter_add on packed 32-bit words
+// f12_pow_dyn, miller_iter_dbl and miller_iter_add on packed 32-bit words
 // (field_w32.cuh), worked by a group of G threads per lane.
 //
-// The formulas, k p offsets and post-reductions are tower.cuh's (f2_mul,
-// f6_mul, f12_mul_raw, post_red, f2_sqr, cyc_sqr_red with comb_a and
-// comb_b, dbl_step_body and add_step_body with f2_mulred and f2_mul_fq,
-// f6_mul_ab, f6_mul_cv, sparse_line_mul), step for step: every value is
-// the same integer, so the 16-bit limbs at the boundary equal tower.cuh's
-// and the plain versions' (ops/cuda_tower.py). An Fq value is 13 packed
+// The formulas, k p offsets and post-reductions are the reference's
+// (pallas_tower.py: _f2_mul, _f6_mul, _f12_mul, _f12_post_red,
+// _cyc_sqr_body, _dbl_step_body and _add_step_body with _f2_mulred and
+// _f2_mul_fq, _sparse_line_mul), as tower.cuh and the plain versions
+// (ops/cuda_tower.py) write them, step for step: every value is the same
+// integer, so the 16-bit limbs at the boundary equal the plain versions'. An Fq value is 13 packed
 // words at R = 2^400, and every Montgomery product is field_w32.cuh's
 // out-of-line `mont`, operands and result in registers. mul12 is
 // mul_small(., 12).
@@ -186,7 +186,7 @@ __device__ __forceinline__ void f12_leaf_ops(const Group<G>& grp, int A,
 }
 
 // Level 2 of a b: task k < 9 makes Fq2 value j = k % 3 of the Fq6 product
-// F = k / 3 (tower.cuh f6_mul) from the leaves at LEAF, into slots
+// F = k / 3 (_f6_mul) from the leaves at LEAF, into slots
 // OUT + 6 F + 2 j and + 1.
 template <int G>
 __device__ __forceinline__ void f6_comb(const TowerW& t, const Group<G>& grp,
@@ -221,7 +221,7 @@ __device__ __forceinline__ void f6_comb(const TowerW& t, const Group<G>& grp,
 }
 
 // Level 3 of a b, before the post-reduction: raw coefficient k = 6 i + 2 j
-// + u from the Fq6 products t0, t1, ts at T6 (tower.cuh f12_mul_raw:
+// + u from the Fq6 products t0, t1, ts at T6 (_f12_mul:
 // c0 = t0 + v t1, c1 = ts - t0 - t1). kx and ks are the offsets of
 // xi(t1[2]) and of the two subtractions: K24 and K42 for a b; K12 and K18
 // for the sparse line product, whose last level has the same form.
@@ -239,7 +239,7 @@ __device__ __forceinline__ Fw f12_comb(const TowerW& t, const Group<G>& grp,
   return add(T(0, 0, u), w);
 }
 
-// a b post-reduced (tower.cuh f12_mul_red) from slots A and B into slots
+// a b post-reduced (_f12_mul_red) from slots A and B into slots
 // OUT; LEAF (54 slots) and T6 (18) are scratch. OUT must not be A or B.
 template <int G>
 __device__ __forceinline__ void f12_mul(const TowerW& t, const Group<G>& grp,
@@ -336,8 +336,8 @@ __device__ __forceinline__ void cyc_sqr(const TowerW& t, const Group<G>& grp,
 
 // ---------------------------------------------- the Miller doubling iteration
 //
-// f <- f^2 line_{R,R}(P), R <- 2R (tower.cuh: f12_sqr_red, dbl_step_body,
-// f2_mul_fq for the line's scaling, sparse_line_mul), in six levels whose
+// f <- f^2 line_{R,R}(P), R <- 2R (_f12_sqr_red, _dbl_step_body,
+// _f2_mul_fq for the line's scaling, _sparse_line_mul), in six levels whose
 // Montgomery products are (f^2's and the point step's side by side):
 //   A  69: f^2's 54 leaves; the Karatsuba leaves of X Y, Y^2, Z^2, X^2,
 //          (Y + Z)^2;
@@ -436,9 +436,9 @@ __device__ __forceinline__ bool dbl_mid_ops(const TowerW& t,
   return true;
 }
 
-// The sparse line product f (la + lb v + lc v w) (tower.cuh
-// sparse_line_mul), shared by both iterations: leaf k < 45, Karatsuba leaf
-// k % 3 of the Fq2 product r = k / 3: c6[j] times la, lb, lc, la, lb + lc
+// The sparse line product f (la + lb v + lc v w) (_sparse_line_mul),
+// shared by both iterations: leaf k < 45, Karatsuba leaf k % 3 of the Fq2
+// product r = k / 3: c6[j] times la, lb, lc, la, lb + lc
 // for blocks r / 3 = 0 .. 4 with c6 = f0, f0, f1, f0 + f1, f0 + f1 and
 // j = r % 3. f at slots F; la(u) gives la's component u; lb, lc at slots
 // LB, LC.
@@ -487,8 +487,8 @@ __device__ __forceinline__ void dbl_late_ops(const TowerW& t,
 }
 
 // The sparse product's Fq6 value j = s % 3 of t0 = f0 (la + lb v), t1 =
-// f1 lc v, ts = (f0 + f1)(la + (lb + lc) v) for s / 3 = 0, 1, 2 (tower.cuh
-// f6_mul_ab, f6_mul_cv), from its leaves at LEAF into slots T6 + 6 (s / 3)
+// f1 lc v, ts = (f0 + f1)(la + (lb + lc) v) for s / 3 = 0, 1, 2 (its Fq6
+// products by a + b v and by c v), from its leaves at LEAF into slots T6 + 6 (s / 3)
 // + 2 j, + 1.
 template <int G>
 __device__ __forceinline__ void sparse_comb(const TowerW& t,
@@ -590,9 +590,9 @@ __device__ __forceinline__ void miller_dbl(const TowerW& t,
 
 // ---------------------------------------------- the Miller addition iteration
 //
-// f <- f line_{R,Q}(P), R <- R + Q with Q = (xq, yq) affine (tower.cuh:
-// add_step_body, f2_mul_fq for lb = -theta px and lc = lambda py,
-// sparse_line_mul on f), step for step, in eight levels of products (the
+// f <- f line_{R,Q}(P), R <- R + Q with Q = (xq, yq) affine
+// (_add_step_body, _f2_mul_fq for lb = -theta px and lc = lambda py,
+// _sparse_line_mul on f), step for step, in eight levels of products (the
 // point step's dependency levels, the sparse product's side by side with
 // them from the level where j, lb and lc exist) and one without:
 //   A   6: the leaves of yq Z and xq Z;
@@ -612,7 +612,7 @@ __device__ __forceinline__ void miller_dbl(const TowerW& t,
 //   I   2 (no product): Y3 = theta (g - h + 8p) - eY + 2p.
 // 126 Montgomery products in 17 rounds of G = 8 threads.
 //
-// Bounds (tower.cuh add_step_body and sparse_line_mul, as stated there;
+// Bounds (tower.cuh add_step_body and the reference's _sparse_line_mul;
 // units of p): f, X, Z < 2; Y < 10; xq, yq, px, py < 1.
 //   * theta < 12, lambda < 4 (yqZ, xqZ < 2 post-reduced); the widest leaf
 //     of C, (theta0 + theta1)^2 < 24^2; -theta = 16 - theta < 16.

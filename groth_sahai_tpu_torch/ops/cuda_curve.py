@@ -2,13 +2,11 @@
 versions.
 
 The port of four kernels of ``groth_sahai_tpu/ops/pallas_curve.py``,
-written in CUDA C++ for ``sm_90a`` in ``csrc/curve_kernels.cu``: `cmadd`
-one thread a lane on 16-bit limbs (``csrc/curve.cuh`` on
-``csrc/tower.cuh`` and ``csrc/field.cuh``), `cadd` and `cmsm_row_scan` one
-thread a lane on Fq values of 13 packed 32-bit words at the same R
-(``csrc/curve_w32.cuh`` on ``csrc/field_w32.cuh``), and `cdbl_n_add` on
-packed words with a group of threads a lane (``csrc/curve_group_w32.cuh``
-on ``csrc/group_w32.cuh``):
+written in CUDA C++ for ``sm_90a`` in ``csrc/curve_kernels.cu``, all on Fq
+values of 13 packed 32-bit words at the boundary's R = 2^400: `cadd` and
+`cmsm_row_scan` one thread a lane (``csrc/curve_w32.cuh`` on
+``csrc/field_w32.cuh``), `cmadd` and `cdbl_n_add` with a group of threads
+a lane (``csrc/curve_group_w32.cuh`` on ``csrc/group_w32.cuh``):
 
   =============  ===================================  ========================
   wrapper        replaces (TPU kernel)                computes
@@ -40,12 +38,12 @@ value.
 What bounds them on the H100: 11 (G1) or 55 (G2) Montgomery products per
 lane for `cmadd` (and per lane and row for `cmsm_row_scan`), 12 or 60 for
 `cadd`, 44 or 220 for `cdbl_n_add` at n = 4, against at most 1.8 KB of
-int64 limbs moved per add: the multiplier. `cdbl_n_add` runs over a few
-hundred to a few thousand lanes (64 launches a `scalar_mul`, one a window
-of each `msm`), where one thread a lane leaves the card idle and a lane's
-chain of products sets the time: its group of threads takes the
-independent products of each level of the doubling and the add side by
-side.
+int64 limbs moved per add: the multiplier. `cmadd` and `cdbl_n_add` run
+over one to a few thousand lanes (14 and 64 launches a `scalar_mul`, one
+`cdbl_n_add` a window of each `msm`), where one thread a lane leaves the
+card idle and a lane's chain of products sets the time: a group of
+threads takes the independent products of each level of the mixed add,
+the doubling and the add side by side.
 
 Dispatch rule: a CPU tensor runs the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its launches in
@@ -68,8 +66,7 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
 LIBRARY = KernelLibrary("gs_curve", "curve_kernels.cu",
-                        ["curve.cuh", "tower.cuh", "field.cuh",
-                         "curve_w32.cuh", "curve_group_w32.cuh",
+                        ["curve_w32.cuh", "curve_group_w32.cuh",
                          "group_w32.cuh", "field_w32.cuh"], {
     "gs_cmadd": [_I, _I] + [_P] * 9 + [_I64, _P, _P, _U32, _P],
     "gs_cdbl_n_add": [_I, _I, _I] + [_P] * 9 + [_I64, _P, _P, _U32, _P],

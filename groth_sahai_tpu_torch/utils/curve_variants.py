@@ -29,16 +29,19 @@ card's name and power limit. The committed design is held against the
 plain versions by `chip_smoke.py`.
 
 With `--groups`, builds the curve library as it stands and with the
-threads a lane of cdbl_n_add (`kCdblGroupG1`, `kCdblGroupG2`) both set to
-each of 4, 8, 16 and 32, into `groth_sahai_tpu_torch/build/cdbl_variants/`,
-prints ptxas's report of the kernel and of `mont` and their SASS, and
-times cdbl_n_add at its four path shapes (G2, n = 8 over 668 lanes:
+threads a lane of cdbl_n_add and cmadd (`kCdblGroupG1`, `kCdblGroupG2`,
+which both kernels take) both set to each of 2, 4, 8, 16 and 32,
+into `groth_sahai_tpu_torch/build/cdbl_variants/`, prints ptxas's report
+of the two kernels and of `mont` and their SASS, and times by CUDA events
+cdbl_n_add at its four path shapes (G2, n = 8 over 668 lanes:
 verify-ppe-334's window combination; G2 and G1, n = 4 over 1336 and 4096
 lanes: the scalar multiplications of the commits and of
-scalar-mul-g1-4096; G1, n = 13 over one lane: msm-g1-65536's) by CUDA
-events, in the order as built, variants, as built, each variant's outputs
-against the committed build's, the committed build's against the plain
-version. `--against DIR` times the curve library of another checkout's
+scalar-mul-g1-4096; G1, n = 13 over one lane: msm-g1-65536's) and cmadd
+at its path shapes (G2 and G1 over 1336 lanes: the commits' window
+tables; G1 over 4096: scalar-mul-g1-4096's; G2 over 128, 32 and 8 and G1
+over 32: gs-e2e's), in the order as built, variants, as built, each
+variant's outputs against the committed build's, the committed build's
+against the plain version. `--against DIR` times the curve library of another checkout's
 kernel sources (`groth_sahai_tpu_torch/csrc`, the same C entry points) as
 one more variant.
 """
@@ -63,11 +66,12 @@ from ..ops.fp import FQ
 OUT = cuda_build.BUILD_DIR / "variants"
 GROUP_OUT = cuda_build.BUILD_DIR / "cdbl_variants"
 GROUPS = (4, 8, 16, 32)
-CDBL_SASS = (r"(cdbl_n_add)_kernelILi([12])ELi(\d+)E",
+CDBL_SASS = (r"(cdbl_n_add|cmadd)_kernelILi([12])ELi(\d+)E",
              "{} G{} at {} threads a lane")
-CDBL_PTXAS = r"cdbl_n_add_kernel|mont"
+CDBL_PTXAS = r"cdbl_n_add_kernel|cmadd_kernel|mont"
 _CDBL_CONST = re.compile(r"(constexpr int (kCdblGroupG1|kCdblGroupG2) = )"
                          r"(\d+);")
+CURVE_GROUPS = (2,) + GROUPS     # --groups: the sizes timed
 
 ROW_CHAINS = r'''
 __device__ __forceinline__ uint32_t mad_hi_cc(uint32_t a, uint32_t b,
@@ -196,13 +200,14 @@ def build_variants(source: str, edits: dict, out: pathlib.Path,
     return built
 
 
-def group_variants(source: str, const: re.Pattern, built: dict) -> dict:
+def group_variants(source: str, const: re.Pattern, built: dict,
+                   groups=GROUPS) -> dict:
     """name -> {file: transform}: as built, then one variant for each G of
-    GROUPS that sets every group-size constant of `source` (the pattern
+    `groups` that sets every group-size constant of `source` (the pattern
     `const`, the size its third group) to G, unless `built` (the committed
     sizes by name) is that G already."""
     out = {"as built": {}}
-    for g in GROUPS:
+    for g in groups:
         if set(built.values()) != {g}:
             out[f"G={g}"] = {source: lambda s, g=g: const.sub(
                 lambda m: f"{m.group(1)}{g};", s)}
@@ -373,15 +378,50 @@ def cdbl_cases(gen):
     return out
 
 
+# cmadd's path shapes: (curve name, lanes)
+CMADD_SHAPES = (("G2", 1336), ("G1", 4096), ("G1", 1336), ("G2", 128),
+                ("G2", 32), ("G1", 32), ("G2", 8))
+
+
+def cmadd_cases(gen):
+    """(name, fn(lib) -> outputs, plain outputs) at CMADD_SHAPES: seeded
+    accumulators < 4p, affine points < 2p, a quarter of them at
+    infinity."""
+    from ..ops.curve import G1, G2
+    args = (host_words(FQ, FQ.p), host_words(FQ, FQ.r_mod_p), FQ.n0,
+            torch.cuda.current_stream().cuda_stream)
+    out = []
+    for cname, lanes in CMADD_SHAPES:
+        curve = G2 if cname == "G2" else G1
+        lead = (2,) if curve.ns == 2 else ()
+        acc = [_limbs(lead + (lanes,), 4, gen) for _ in range(3)]
+        aff = [_limbs(lead + (lanes,), 2, gen) for _ in range(2)]
+        inf = torch.rand(lanes, generator=gen, device="cuda") < 0.25
+
+        def call(lib, acc=acc, aff=aff, inf=inf, lanes=lanes, ns=curve.ns):
+            outs = [torch.empty_like(acc[0]) for _ in range(3)]
+            check(lib.gs_cmadd(FQ.n, ns,
+                               *(t.data_ptr() for t in acc + aff + [inf]
+                                 + outs), lanes, *args), "cmadd", FQ.n)
+            return outs
+
+        def plain(acc=acc, aff=aff, inf=inf, curve=curve):
+            return list(CC.cmadd_plain(tuple(acc), (*aff, inf), curve))
+        out.append((f"cmadd {cname}, {lanes} lanes", call, plain))
+    return out
+
+
 def groups_main(against) -> int:
-    """cdbl_n_add's group sizes (and another checkout's kernels) timed."""
+    """cdbl_n_add's and cmadd's group sizes (and another checkout's
+    kernels) timed."""
     card = card_line()
     print(card, flush=True)
     text = (cuda_build.CSRC / "curve_kernels.cu").read_text()
     built_g = {m.group(2): int(m.group(3))
                for m in _CDBL_CONST.finditer(text)}
     print(f"as built: {built_g}", flush=True)
-    edits = group_variants("curve_kernels.cu", _CDBL_CONST, built_g)
+    edits = group_variants("curve_kernels.cu", _CDBL_CONST, built_g,
+                           CURVE_GROUPS)
     sources = {}
     if against:
         edits["against"] = {}
@@ -394,7 +434,7 @@ def groups_main(against) -> int:
     libs = {name: _bind(lib) for name, (lib, _) in built.items()}
     gen = torch.Generator("cuda").manual_seed(20261018)
     order = list(libs) + ["as built"]
-    for what, fn, plain in cdbl_cases(gen):
+    for what, fn, plain in cdbl_cases(gen) + cmadd_cases(gen):
         want = fn(libs["as built"])
         exact = all(torch.equal(a, b) for a, b in zip(want, plain()))
         print(f"[plain] {what}: as built "
@@ -417,8 +457,8 @@ def groups_main(against) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--groups", action="store_true",
-                    help="time cdbl_n_add's threads a lane, not mont's "
-                         "designs")
+                    help="time cdbl_n_add's and cmadd's threads a lane, "
+                         "not mont's designs")
     ap.add_argument("--against", type=pathlib.Path, default=None,
                     help="with --groups: another checkout's csrc/ to time "
                          "beside these")

@@ -4,22 +4,22 @@
 
 Needs one NVIDIA H100 (sm_90a) and nvcc. Builds `csrc/tower_kernels.cu` as
 it stands and with the threads a lane of fq12_mul, cyc_pow,
-miller_iter_dbl and miller_iter_add (`kFq12MulGroup`, `kCycPowGroup`,
-`kDblGroup`, `kAddGroup`) all set to each of 4, 8, 16 and 32 in copies of
-its sources,
-one nvcc each, all at once, into
-`groth_sahai_tpu_torch/build/tower_variants/`. For each it prints ptxas's
-report of the four kernels and of `mont` (frame, spills, registers) and
-their SASS (instructions, and the mix of their Montgomery product), then
-times, by CUDA events, fq12_mul over 4 lanes (the final exponentiation's
-products), 256, 2048 (the first halving of verify's Miller product tree)
-and 4096 lanes, cyc_pow over 4 lanes (the verifier's final
-exponentiation, e = |x|) and over 4096, miller_iter_dbl over 4096 lanes
-(the verifier's Miller loop) and miller_iter_add over 4096, 128 and 32
-lanes (the verifier's; gs-e2e's widest and narrowest), in the order as
-built, variants, as
-built, each variant's outputs against the committed build's; the
-committed build's against the plain versions. With
+miller_iter_dbl, miller_iter_add and f12_pow_dyn (`kFq12MulGroup`,
+`kCycPowGroup`, `kDblGroup`, `kAddGroup`, `kPowDynGroup`) all set to each
+of 4, 8, 16 and 32 in copies of its sources, one nvcc each, all at once,
+into `groth_sahai_tpu_torch/build/tower_variants/`. For each it prints
+ptxas's report of the five kernels and of `mont` (frame, spills,
+registers) and their SASS (instructions, and the mix of their Montgomery
+product), then times, by CUDA events, fq12_mul over 4 lanes (the final
+exponentiation's products), 256, 2048 (the first halving of verify's
+Miller product tree) and 4096 lanes, cyc_pow over 4 lanes (the
+verifier's final exponentiation, e = |x|) and over 4096, miller_iter_dbl
+over 4096 lanes (the verifier's Miller loop), miller_iter_add over 4096,
+128 and 32 lanes (the verifier's; gs-e2e's widest and narrowest) and
+f12_pow_dyn over 4096 and 1024 lanes (gt-exp-4096's two calls: random
+255-bit scalars), in the order as built, variants, as built, each
+variant's outputs against the committed build's; the committed build's
+against the plain versions. With
 `--against DIR`, the tower library built from the kernel sources in DIR
 (another checkout's `groth_sahai_tpu_torch/csrc`, with the same C entry
 points) is timed as one more variant. Inputs are seeded, at the kernels'
@@ -39,18 +39,18 @@ from ..ops import bls12_381 as C
 from ..ops import cuda_build
 from ..ops import cuda_tower as CT
 from ..ops.cuda_build import check, host_words
-from ..ops.fp import FQ
+from ..ops.fp import FQ, FR
 from .curve_variants import _bind, _events_ms, _limbs, build_variants, \
     card_line, group_variants, ptxas_report, sass_report
 
 OUT = cuda_build.BUILD_DIR / "tower_variants"
-TOWER_SASS = (r"(fq12_mul|cyc_pow|miller_iter_dbl|miller_iter_add)"
-              r"_kernelILi(\d+)E", "{} at {} threads a lane")
-# ptxas lines: the four kernels, and the Montgomery product they call
+TOWER_SASS = (r"(fq12_mul|cyc_pow|miller_iter_dbl|miller_iter_add|"
+              r"f12_pow_dyn)_kernelILi(\d+)E", "{} at {} threads a lane")
+# ptxas lines: the five kernels, and the Montgomery product they call
 PTXAS = (r"fq12_mul_kernel|cyc_pow_kernel|miller_iter_dbl_kernel|"
-         r"miller_iter_add_kernel|mont")
+         r"miller_iter_add_kernel|f12_pow_dyn_kernel|mont")
 _CONST = re.compile(r"(constexpr int (kFq12MulGroup|kCycPowGroup|"
-                    r"kDblGroup|kAddGroup) = )(\d+);")
+                    r"kDblGroup|kAddGroup|kPowDynGroup) = )(\d+);")
 
 
 def built_groups() -> dict:
@@ -61,7 +61,7 @@ def built_groups() -> dict:
 
 def variants() -> dict:
     """name -> {file: transform}: as built, then every G of GROUPS for all
-    four kernels that is not the committed choice."""
+    five kernels that is not the committed choice."""
     return group_variants("tower_kernels.cu", _CONST, built_groups())
 
 
@@ -129,6 +129,21 @@ def cases(gen):
             return [fo] + list(rs)
         out.append((f"miller_iter_add, {lanes} lanes", lanes, add_call,
                     add_plain))
+    for lanes in (4096, 1024):
+        a = _limbs((12, lanes), 2, gen)
+        s = torch.randint(0, 1 << 16, (FR.n, lanes), generator=gen,
+                          dtype=torch.int64, device="cuda")
+        s[15] &= (1 << 15) - 1              # 255-bit scalars, like rho
+        s[16:] = 0
+
+        def pow_dyn_call(lib, a=a, s=s, lanes=lanes):
+            o = torch.empty_like(a)
+            check(lib.gs_f12_pow_dyn(FQ.n, FR.n, a.data_ptr(), s.data_ptr(),
+                                     o.data_ptr(), lanes, *args, FQ.n0,
+                                     stream), "f12_pow_dyn", FQ.n)
+            return [o]
+        out.append((f"f12_pow_dyn, {lanes} lanes", lanes, pow_dyn_call,
+                    lambda a=a, s=s: [CT.f12_pow_dyn_plain(a, s)]))
     return out
 
 
@@ -162,7 +177,8 @@ def main() -> int:
               flush=True)
         if not exact:
             return 1
-        reps = 5 if "cyc_pow" in what else 20
+        reps = 3 if "f12_pow_dyn" in what else 5 if "cyc_pow" in what \
+            else 20
         for name in order:
             same = all(torch.equal(a, b) for a, b in zip(fn(libs[name]),
                                                          want))

@@ -1,4 +1,5 @@
-"""The grouped packed-word tower of cyc_pow and the two Miller iterations.
+"""The grouped packed-word tower of cyc_pow, f12_pow_dyn and the two Miller
+iterations.
 
 `csrc/tower_w32.cuh` cuts an Fq12 product, a cyclotomic square and the
 Miller doubling and addition iterations into levels of independent tasks
@@ -8,15 +9,21 @@ its own. The kernels run only on a card, so this file holds a pure-Python
 twin of that schedule -- the same levels, tasks, slots and k p offsets,
 each Montgomery product through the twin of the packed-word product in
 test_torch_words.py -- and holds it limb for limb against the plain
-versions `cuda_tower.cyc_pow_plain`, `miller_iter_dbl_plain` and
-`miller_iter_add_plain` (themselves held against the JAX package in
+versions `cuda_tower.cyc_pow_plain`, `f12_pow_dyn_plain`,
+`miller_iter_dbl_plain` and `miller_iter_add_plain` (themselves held
+against the JAX package in
 test_torch_cuda_tower.py and test_torch_cuda_miller.py), on seeded inputs
 and on the edges chip_smoke.py uses. The twin asserts the bound audit at
 every step (Montgomery operands < 2^400 with value(a) value(b) <= 2^16 p^2,
 sums < 2^416, every k p subtraction non-negative), that no task reads a
 slot before a level wrote it, and that no two tasks of a level touch a slot
 that one of them writes, so the threads of a group may take the tasks in
-any order; and it counts the rounds of products the header states.
+any order; and it counts the rounds of products the header states. For
+schedules of tens of thousands of products (f12_pow_dyn's 272 rounds, the
+curve twin's thousands of lanes) a FastLane computes each Montgomery
+product from its closed form (a b + M p) / 2^400 with M = -a b p^-1 mod
+2^400, the one integer that the packed-word product's instruction twin
+gives (test_torch_words.py), under the same bound asserts.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from .test_torch_words import MASK, NPW, NW, mont_w32, n0w_newton
 P = C.P
 ONE = FQ.r_mod_p
 R_INV = pow(1 << 400, -1, P)
+NEG_P_INV = -pow(P, -1, 1 << 400) % (1 << 400)
 KP = {k: k * P for k in (2, 4, 6, 8, 12, 16, 18, 24, 42, 144)}  # tower_w32
 PW = [(P >> (32 * k)) & MASK for k in range(NPW)]
 N0W = n0w_newton(PW[0])
@@ -87,7 +95,7 @@ class Lane:
 
     def __init__(self, slots: int):
         self.s = [None] * slots
-        self.rounds = {g: 0 for g in (4, 8, 16, 32)}
+        self.rounds = {g: 0 for g in (2, 4, 8, 16, 32)}
         self.products = 0
         self._level = None
 
@@ -108,10 +116,14 @@ class Lane:
         assert a * b <= (1 << 16) * P * P
         self.products += 1
         self._with_product.add(self._task)
-        w = mont_w32(words(a), words(b), PW, N0W, FQ.n0)
-        c = sum(x << (32 * k) for k, x in enumerate(w))
+        c = self._product(a, b)
         assert c < 2 * P and c % P == a * b * R_INV % P
         return c
+
+    @staticmethod
+    def _product(a, b):
+        w = mont_w32(words(a), words(b), PW, N0W, FQ.n0)
+        return sum(x << (32 * k) for k, x in enumerate(w))
 
     def level(self, n: int, task):
         reads, writes = {}, {}
@@ -128,6 +140,15 @@ class Lane:
 
     def post_red(self, a):
         return self.mont(a, ONE)
+
+
+class FastLane(Lane):
+    """A Lane whose Montgomery product is its closed form."""
+
+    @staticmethod
+    def _product(a, b):
+        t = a * b
+        return (t + (t * NEG_P_INV & ((1 << 400) - 1)) * P) >> 400
 
 
 def kara_ops(q, a, b):
@@ -270,6 +291,26 @@ def cyc_pow_twin(a, e: int):
     for i in range(CT.CYC_POW_NBITS - 1, -1, -1):
         cyc_sqr(ln, cur, tmp, LEAF)
         if (e >> i) & 1:
+            f12_mul(ln, tmp, X, cur, LEAF, T6)
+        else:
+            cur, tmp = tmp, cur
+    return [ln.ld(cur + c) for c in range(12)], ln
+
+
+def f12_pow_dyn_twin(a, s: int):
+    """f12_pow_dyn_kernel for one lane: a is 12 ints, s the lane's scalar
+    (its 272 bits read MSB first); cyc_pow's slots, each round the square
+    of cur into tmp (f12_mul with B = A), then the product with a back
+    into cur on a set bit, or the two slot indices swapped. Returns 12 ints
+    and the lane (its counts)."""
+    X, ACC, TMP, LEAF, T6 = 0, 12, 24, 36, 90
+    ln = FastLane(108)
+    ln.level(12, lambda c: (ln.st(X + c, a[c]),
+                            ln.st(ACC + c, ONE if c == 0 else 0)))
+    cur, tmp = ACC, TMP
+    for b in range(CT.POW_DYN_NBITS - 1, -1, -1):
+        f12_mul(ln, cur, cur, tmp, LEAF, T6)
+        if (s >> b) & 1:
             f12_mul(ln, tmp, X, cur, LEAF, T6)
         else:
             cur, tmp = tmp, cur
@@ -618,6 +659,30 @@ def test_group_cyc_pow_matches_plain(e):
         # at G = 32: 2 product rounds a square, 3 a product (plus one
         # level of Fq6 values without products)
         assert ln.rounds[32] == 64 * 2 + ones * 3
+
+
+def test_group_f12_pow_dyn_matches_plain():
+    """f12_pow_dyn_kernel's slot schedule against f12_pow_dyn_plain, limb
+    for limb: an all-zero scalar (272 squares), an all-ones one (272
+    squares and 272 products), a seeded 255-bit one; the base's lanes
+    seeded < 2p, one with every coefficient 2p - 1. Each Fq12 product
+    takes 3 rounds at G = 32 and 5 at G = 16."""
+    lanes = 3
+    a = f12_lanes(54, lanes, 2 * P, [2 * P - 1])
+    scalars = [0, (1 << CT.POW_DYN_NBITS) - 1,
+               int.from_bytes(np.random.default_rng(55).bytes(32),
+                              "little") >> 1]
+    s = np.array([[v >> (16 * i) & 0xFFFF for v in scalars]
+                  for i in range(CT.POW_DYN_NBITS // 16)], dtype=np.int64)
+    want = CT.f12_pow_dyn_plain(limbs_from_numpy(a, device="cpu"),
+                                limbs_from_numpy(s, device="cpu"))
+    va = ints(a)
+    for lane, sc in enumerate(scalars):
+        got, ln = f12_pow_dyn_twin([int(va[c, lane]) for c in range(12)], sc)
+        assert [limbs(v) for v in got] == want[:, :, lane].T.tolist(), lane
+        products = CT.POW_DYN_NBITS + bin(sc).count("1")
+        assert ln.products == 66 * products
+        assert (ln.rounds[32], ln.rounds[16]) == (3 * products, 5 * products)
 
 
 def test_group_miller_iter_dbl_matches_plain():
