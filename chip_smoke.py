@@ -11,9 +11,9 @@ Phases (any failure exits non-zero and prints no result line):
                 name and power limit, and from cuobjdump the instructions of
                 the packed-word kernels (cadd, cmsm_row_scan, cdbl_n_add,
                 cmadd, fq12_mul, cyc_pow, f12_pow_dyn, miller_iter_dbl,
-                miller_iter_add, pow_const) and of their Montgomery
-                product, with the grouped kernels' frames, spills and
-                registers;
+                miller_iter_add, miller_dbl_step, pow_const, mont_mul over
+                Fq and Fr) and of their Montgomery product, with the
+                grouped kernels' frames, spills and registers;
   2. kernels -- each of the sixteen kernels against its plain PyTorch version on
                 the card, bit-exact, at the paths' main shapes: the field
                 kernels at Fq width over the pairing's stacks (16384,
@@ -98,7 +98,8 @@ Phases (any failure exits non-zero and prints no result line):
                 launch, and every kernel is then held bit-exact, with
                 inputs made as in phase 2, at each recorded shape that
                 phase 2 did not cover (the lazy tower's stacks, the tree
-                product's halvings, the final exponentiation's inverse);
+                product's halvings, the final exponentiation's inverse;
+                Fr's mont_mul shapes are listed on a line of their own);
   4. report  -- launch counts of each path (every kernel the reference takes
                 there must have run on it, each launch recorded with its
                 shape; the Miller iterations exactly 63 + 5 times per
@@ -107,8 +108,11 @@ Phases (any failure exits non-zero and prints no result line):
                 call), each
                 kernel's device time per launch
                 (profiler) at its path shape beside its bound, the plain
-                version's time (CUDA events), one `kernels` JSON line, a
-                profile of each path, then the result line.
+                version's time (CUDA events); mont_mul also at the three
+                shapes of each field that verify-ppe-334 launches most
+                (over a field it launches none of, all the paths);
+                one `kernels` JSON line, a profile of each path, then the
+                result line.
 
 Imports nothing of JAX or of the JAX package. Needs one card.
 """
@@ -1725,7 +1729,8 @@ def bound_ms(name: str, lanes: int, args) -> tuple:
     an Fq value is w = 13 words and p pw = 12, so a Montgomery product at
     R = 2^400 is 2 (w^2 + w pw) = 650 (the product's w^2 word products
     and the reduction's w pw, 12 steps of 2^32 and one of 2^16), a
-    schoolbook product 2 w^2 = 338, a reduction 2 w pw = 312; an Fq12
+    schoolbook product 2 w^2 = 338, a reduction 2 w pw = 312 (the field
+    kernels over Fr: w = 9, pw = 8, 17 limbs, a product 306); an Fq12
     product is 66 Montgomery products (54 Karatsuba + 12 post-reductions),
     a cyclotomic square 30 (18 + 12), a Miller doubling iteration 176 (66
     for f^2, 49 for the point step, 4 to scale the line, 57 for the sparse
@@ -1740,8 +1745,9 @@ def bound_ms(name: str, lanes: int, args) -> tuple:
     from groth_sahai_tpu_torch.ops import cuda_fp as K
     from groth_sahai_tpu_torch.ops import cuda_tower as CT
     from groth_sahai_tpu_torch.ops.fp import FQ, FR
-    n = FQ.n
-    w, pw = (n + 1) // 2, (FQ.p.bit_length() + 31) // 32
+    F = args[0] if name in FIELD else FQ        # Fr: 17 limbs, 9 words
+    n = F.n
+    w, pw = (n + 1) // 2, (F.p.bit_length() + 31) // 32
     mont = 2 * (w * w + w * pw)
     if name == "pow_const":
         bits = K.exponent_bits(args[-1])
@@ -1822,15 +1828,34 @@ def report_shapes(name):
     return main + [(t + (None,))[:3] for t in ALSO_TIMED.get(name, [])]
 
 
-def kernel_report(device, worst, timing, counts, by_path):
-    """Each kernel at its path shapes (main first): device time per launch
-    (profiler), the wrapper's time per call and the plain version's (CUDA
-    events), its bound; the outputs of these inputs compared once more."""
+def top_shapes(shapes, name: str, k: int = 3) -> dict:
+    """The k shapes (lanes) of kernel `name` that one path's recorded
+    launches hold most often, by field: {field name: [(lanes, launches)]}."""
+    by_field = collections.defaultdict(collections.Counter)
+    for (kern, field, lanes, _), calls in shapes.items():
+        if kern == name:
+            by_field[field][lanes] += calls
+    return {f: c.most_common(k) for f, c in sorted(by_field.items())}
+
+
+def kernel_report(device, worst, timing, counts, by_path, extra):
+    """Each kernel at its path shapes (main first), then at the shapes
+    `extra` gives it ({kernel: [(field name, lanes)]}, inputs made here):
+    device time per launch (profiler), the wrapper's time per call and the
+    plain version's (CUDA events), its bound; the outputs of these inputs
+    compared once more."""
+    import torch
+    from groth_sahai_tpu_torch.ops.fp import FQ, FR
+    gen = torch.Generator().manual_seed(SEED + 3)
     rows = []
     for name, (replaces, source) in ORIGIN.items():
         times = []
-        for field, lanes, e in report_shapes(name):
-            args = moved(timing.pop((name, field, lanes)), device)
+        cases = [(f, m, e, False) for f, m, e in report_shapes(name)]
+        cases += [(f, m, None, True) for f, m in extra.get(name, [])]
+        for field, lanes, e, made_here in cases:
+            args = (case_args(name, {"Fq": FQ, "Fr": FR}[field], lanes, None,
+                              gen, device) if made_here
+                    else moved(timing.pop((name, field, lanes)), device))
             t = time_kernel(name, lanes, args)
             del args
             times.append(dict(zip(
@@ -2014,14 +2039,15 @@ def main() -> int:
               f"{card}", flush=True)
         from groth_sahai_tpu_torch.utils.curve_variants import (
             CDBL_PTXAS, CDBL_SASS, ptxas_report, sass_report)
-        from groth_sahai_tpu_torch.utils.fp_variants import FP_SASS
+        from groth_sahai_tpu_torch.utils.fp_variants import FP_SASS, MONT_SASS
         from groth_sahai_tpu_torch.utils.fp_variants import PTXAS as FP_PTXAS
         from groth_sahai_tpu_torch.utils.tower_variants import PTXAS, TOWER_SASS
         tower, curve = cuda_tower.LIBRARY.path(), cuda_curve.LIBRARY.path()
         fp = cuda_fp.LIBRARY.path()
         for line in (sass_report(curve) + sass_report(curve, CDBL_SASS)
                      + sass_report(tower, TOWER_SASS)
-                     + sass_report(fp, FP_SASS)):
+                     + sass_report(fp, FP_SASS)
+                     + sass_report(fp, MONT_SASS)):
             print(f"[sass] {line}", flush=True)
         for lib, pattern in ((curve, CDBL_PTXAS), (tower, PTXAS),
                              (fp, FP_PTXAS)):
@@ -2047,9 +2073,23 @@ def main() -> int:
         phases["path_shapes"] = time.perf_counter() - t0
         print(f"[shapes] {extra} launch shapes of the paths held beside "
               f"phase 2's {len(checked) - extra}", flush=True)
+        fr_mont = {path: sorted(m for (k, f, m, _) in c
+                                if k == "mont_mul" and f == "Fr")
+                   for path, c in shapes.items()}
+        print(f"[shapes] Fr mont_mul, each shape held bit-exact: lanes "
+              f"by path {json.dumps({p: m for p, m in fr_mont.items() if m})}",
+              flush=True)
+        top = top_shapes(shapes["verify-ppe-334"], "mont_mul")
+        print(f"[shapes] verify-ppe-334's most-launched mont_mul shapes "
+              f"(lanes, launches) by field: {json.dumps(top)}", flush=True)
+        every = top_shapes(sum(shapes.values(), collections.Counter()),
+                           "mont_mul")
+        for field, most in every.items():     # a field verify launches none of
+            top.setdefault(field, most)
 
         t0 = time.perf_counter()
-        rows = kernel_report(device, worst, timing, total, by_path)
+        rows = kernel_report(device, worst, timing, total, by_path, {
+            "mont_mul": [(f, m) for f, ms in top.items() for m, _ in ms]})
         phases["report"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()

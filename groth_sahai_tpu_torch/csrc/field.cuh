@@ -15,7 +15,7 @@
 //   * mont_mul needs value(a) * value(b) <= 2^16 p^2; output < 2p;
 //   * redc needs t < p R (2N+1 exact limbs); output < 2p;
 //   * sub(a, b, kp) = sub_k(a, b, k) = a - b + k p needs bound(b) <= k p.
-// add, sub, sub_k, neg_k, mul_small, select and dbl read limb j before
+// add, sub, sub_k, neg_k, select and dbl read limb j before
 // they write it, so `out` may be one of the inputs.
 // The Montgomery output is the unique (t + M p) / R with M = -t p^-1 mod R
 // and no final subtraction, so it equals the plain version limb for limb.
@@ -123,20 +123,6 @@ __device__ __forceinline__ void neg_k(const uint32_t (&a)[N], uint32_t k,
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     const uint32_t v = k * p[j] + kMask - a[j] + c;
-    out[j] = v & kMask;
-    c = v >> kW;
-  }
-}
-
-// a k for a small k <= 512 (pallas_reg.mul_small): a column is at most
-// 512 (2^16 - 1) plus a carry < 2^10, so < 2^26. Bound: k bound(a).
-template <int N>
-__device__ __forceinline__ void mul_small(const uint32_t (&a)[N], uint32_t k,
-                                          uint32_t (&out)[N]) {
-  uint32_t c = 0;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const uint32_t v = a[j] * k + c;
     out[j] = v & kMask;
     c = v >> kW;
   }

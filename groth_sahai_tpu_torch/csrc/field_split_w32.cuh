@@ -1,19 +1,22 @@
 // The Montgomery product of field_w32.cuh split over a group of G threads
-// of one warp: the product of pow_const's Fermat chain (fp_kernels.cu).
+// of one warp: the product of Fq's pow_const (its Fermat chain) and of
+// mont_mul over Fq and Fr (fp_kernels.cu).
 //
-// Same integer as field_w32.cuh's `mont` (R = 2^400, 12 reduction steps of
-// 2^32 with n0w and one of 2^16 with n0, no final subtraction: the unique
+// Same integer as field_w32.cuh's mont_words on NW words (Fq: NW = 13, R =
+// 2^400, 12 reduction steps of 2^32 with n0w and one of 2^16 with n0; Fr:
+// NW = 9, R = 2^272, 8 steps and one; no final subtraction: the unique
 // (t + M p) / R with M = -t p^-1 mod R), so the 16-bit limbs at the
 // boundary equal field.cuh's and the plain version's.
 //
-// Layout. The running sum T of the CIOS steps lives in a window of 16
-// columns of 32 bits; thread g of the group owns columns g K .. g K + K - 1
-// (K = 16 / G). Each column is kept in carry-save form as three words
+// Layout. The running sum T of the CIOS steps lives in a window of C
+// columns of 32 bits (C = NW rounded up to a multiple of G: 16 for Fq at
+// G = 4, 8, 16); thread g of the group owns columns g K .. g K + K - 1
+// (K = C / G). Each column is kept in carry-save form as three words
 // (l, h, t): the value l + 2^32 h + 2^64 t at the column's weight. Every
-// thread holds all 13 words of the operand a (the broadcast operand) and
-// its own K words of b and of p (zero past word 12 and 11).
+// thread holds all NW words of the operand a (the broadcast operand) and
+// its own K words of b and of p (zero past word NW - 1 and NW - 2).
 //
-// One CIOS step i (13 steps, unrolled):
+// One CIOS step i (NW steps, unrolled):
 //   * every column adds a_i b_j whole (mad.lo.cc, madc.hi.cc, addc): the
 //     64-bit product lands in the column's (l, h, t), so no product half
 //     crosses a thread;
@@ -26,9 +29,23 @@
 //     later (before the column's l is read again), so the shuffle is off
 //     the critical path; for K = 1 it is on it.
 // Columns stay below 2^66 (at most 2^35 after a shift, plus two products
-// below 2^64 and one word), so t <= 3.
+// below 2^64 and one word), so t <= 3, whatever the operands' words.
 //
-// After step 12 the carries resolve once, in three exchanges:
+// Bounds (the contract of mont_mul and pow_const: 16-bit limbs, so a, b <
+// 2^(32 NW - 16), and value(a) value(b) <= 2^16 p^2):
+//   * after each step T < b + p (T_(i+1) = (T_i + a_i b + m p) / 2^32 with
+//     a_i, m < 2^32, from T_0 = 0), below 2^(32 NW): T's value never
+//     reaches a column past NW - 1, whose l, h and t hold a product whole,
+//     so C >= NW columns suffice and columns NW .. C - 1 stay zero;
+//   * the output is (a b + M p) / R <= 2^16 p^2 / R + p = p (1 + 2^16 p /
+//     R): Fq p (1 + 2^(16 + 381 - 400)) < 1.125 p, Fr p (1 + 2^(16 + 255
+//     - 272)) < 1.5 p, both < 2p (at the extremes a = 2^16 p^2 / b, b = p
+//     or 2p: the bound holds for either factor in either role);
+//   * before the last shift T = 2^16 x output < 2^17 p < 2^(32 NW - 16)
+//     (Fq 2^398, Fr 2^272), so the carries out of column NW - 1 and the
+//     words h_(NW-1), t_(NW-1), t_(NW-2) that would reach column NW are 0.
+//
+// After step NW - 1 the carries resolve once, in three exchanges:
 //   * s_j + 2^32 c_j = l_j + h_(j-1) + t_(j-2) (c_j <= 2), the words of
 //     the column below by a shuffle up at a thread's first columns;
 //   * a thread adds its columns' c inside its block (one carry chain), and
@@ -52,7 +69,6 @@
 namespace gs {
 namespace w32 {
 
-constexpr int kCols = 16;                 // columns of the window
 constexpr unsigned kWarp = 0xFFFFFFFFu;   // the shuffles' and ballots' mask
 
 // 2^32 t + 2^32 h + l += x y, whole.
@@ -63,18 +79,19 @@ __device__ __forceinline__ void mac3(uint32_t& l, uint32_t& h, uint32_t& t,
   t = addc(t, 0);
 }
 
-// The G threads of a group working one split product.
-template <int G>
+// The G threads of a group working one split product of NW words.
+template <int G, int NW = kWords>
 struct Split {
-  static_assert(G >= 2 && G <= 16 && kCols % G == 0,
+  static_assert(G >= 2 && G <= 16 && 32 % G == 0,
                 "a group of 2 to 16 threads inside one warp");
-  static constexpr int K = kCols / G;      // columns a thread
+  static constexpr int K = (NW + G - 1) / G;   // columns a thread (C / G)
 
   int g;                                   // rank in the group
   unsigned base;                           // the group's first lane
   uint32_t p[K];                           // p's words at g's columns
 
-  __device__ explicit Split(const FieldW& f)
+  template <class F>
+  __device__ explicit Split(const F& f)
       : g(static_cast<int>(threadIdx.x % G)),
         base(threadIdx.x % 32 & ~static_cast<unsigned>(G - 1)) {
     own(f.p, p);
@@ -91,30 +108,29 @@ struct Split {
       if (j / K == g) o[j % K] = w[j];
   }
 
-  // All 13 words of a value from the group's own words.
+  // All NW words of a value from the group's own words.
   __device__ __forceinline__ void full(const uint32_t (&o)[K],
-                                       uint32_t (&w)[kWords]) const {
+                                       uint32_t (&w)[NW]) const {
 #pragma unroll
-    for (int i = 0; i < kWords; ++i)
+    for (int i = 0; i < NW; ++i)
       w[i] = __shfl_sync(kWarp, o[i % K], i / K, G);
   }
 
-  // a b 2^-400 mod p (< 2p), a whole in every thread, b and the result as
-  // this thread's words. Bounds as field_w32.cuh's mont.
-  __device__ __forceinline__ void mont(const FieldW& f,
-                                       const uint32_t (&a)[kWords],
+  // a b R^-1 mod p (< 2p), a whole in every thread, b and the result as
+  // this thread's words. Bounds as field_w32.cuh's mont (above).
+  template <class F>
+  __device__ __forceinline__ void mont(const F& f, const uint32_t (&a)[NW],
                                        const uint32_t (&b)[K],
                                        uint32_t (&r)[K]) const {
     uint32_t l[K], h[K], t[K], pend = 0;
 #pragma unroll
     for (int k = 0; k < K; ++k) l[k] = h[k] = t[k] = 0;
 #pragma unroll
-    for (int i = 0; i < kWords; ++i) {
+    for (int i = 0; i < NW; ++i) {
 #pragma unroll
       for (int k = 0; k < K; ++k) mac3(l[k], h[k], t[k], a[i], b[k]);
       const uint32_t low = __shfl_sync(kWarp, l[0], 0, G);
-      const uint32_t m = i < kWords - 1 ? low * f.n0w
-                                        : (low * f.n0) & 0xFFFFu;
+      const uint32_t m = i < NW - 1 ? low * f.n0w : (low * f.n0) & 0xFFFFu;
 #pragma unroll
       for (int k = 0; k < K; ++k) mac3(l[k], h[k], t[k], m, p[k]);
       if (K > 1) {                        // last step's word from g + 1
@@ -122,7 +138,7 @@ struct Split {
         h[K - 1] = addc_cc(h[K - 1], 0);
         t[K - 1] = addc(t[K - 1], 0);
       }
-      if (i == kWords - 1) break;
+      if (i == NW - 1) break;
       // T / 2^32: column k takes its h + 2^32 t and column k + 1's l
       uint32_t next = __shfl_down_sync(kWarp, l[0], 1, G);
       next = g == G - 1 ? 0u : next;

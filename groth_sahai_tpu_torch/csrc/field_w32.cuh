@@ -12,7 +12,10 @@
 // field.cuh's mont_mul: with no final subtraction, (t + M p) / R with
 // M = -t p^-1 mod R is unique, and 12 reduction steps of 2^32 (with
 // n0w = -p^-1 mod 2^32) plus one step of 2^16 (with n0 = -p^-1 mod 2^16)
-// reach it as field.cuh's 25 steps of 2^16 do. add, sub and mul12 are
+// reach it as field.cuh's 25 steps of 2^16 do. The product's body
+// (mont_words) takes any odd word count NW with p in NW - 1 words: Fr's
+// 17 limbs (R = 2^272, p < 2^255) are 9 words, 8 steps of 2^32 and one
+// of 2^16, for fp_kernels.cu's mont_mul. add, sub and mul12 are
 // functions of the integer values alone, so a body written with them gives
 // the limbs of the same body in 16-bit limbs (the plain versions in
 // ops/cuda_curve.py and ops/cuda_tower.py).
@@ -57,13 +60,43 @@ struct Fw {
   uint32_t w[kWords];
 };
 
-// 16-bit limbs (< 2^16 each) to packed words.
+// The NW - 1 words of p and -p^-1 mod 2^32, mod 2^16: all that the
+// Montgomery product of NW words reads (mont_words); FieldW holds the same
+// three for Fq beside its constants.
+template <int NW>
+struct MontW {
+  uint32_t p[NW - 1];
+  uint32_t n0w;
+  uint32_t n0;
+};
+
+// 16-bit limbs (< 2^16 each; 2 NW - 1 of them) to NW packed words.
+template <int NW = kWords>
 inline void pack_host(const uint32_t* limbs, uint32_t* words) {
-  for (int k = 0; k < kWords; ++k) {
+  for (int k = 0; k < NW; ++k) {
     const uint32_t lo = limbs[2 * k];
-    const uint32_t hi = 2 * k + 1 < kLimbs ? limbs[2 * k + 1] : 0;
+    const uint32_t hi = 2 * k + 1 < 2 * NW - 1 ? limbs[2 * k + 1] : 0;
     words[k] = lo | hi << 16;
   }
+}
+
+// -p^-1 mod 2^32 by Newton's iteration: x = p0 is right to 3 bits (p odd),
+// each step doubles the bits that are right (3, 6, 12, 24, 48).
+inline uint32_t n0w_of(uint32_t p0) {
+  uint32_t x = p0;
+  for (int i = 0; i < 4; ++i) x *= 2u - p0 * x;
+  return 0u - x;
+}
+
+template <int NW>
+inline MontW<NW> make_mont_w(const uint32_t* p16, uint32_t n0) {
+  MontW<NW> f;
+  uint32_t p[NW];
+  pack_host<NW>(p16, p);
+  for (int j = 0; j < NW - 1; ++j) f.p[j] = p[j];
+  f.n0w = n0w_of(p[0]);
+  f.n0 = n0;
+  return f;
 }
 
 // k p as packed words for each k of ks[0 .. n - 1], from p's packed words.
@@ -87,11 +120,7 @@ inline FieldW make_field_w(const uint32_t* p16, const uint32_t* one16,
   for (int j = 0; j < kPWords; ++j) f.p[j] = p[j];
   pack_host(one16, f.one);
   kp_words(p, kKp, kKinds, f.kp);
-  // p^-1 mod 2^32 by Newton's iteration: x = p0 is right to 3 bits (p odd),
-  // each step doubles the bits that are right (3, 6, 12, 24, 48).
-  uint32_t x = p[0];
-  for (int i = 0; i < 4; ++i) x *= 2u - p[0] * x;
-  f.n0w = 0u - x;
+  f.n0w = n0w_of(p[0]);
   f.n0 = n0;
   return f;
 }
@@ -227,81 +256,94 @@ __device__ __forceinline__ Fw mul12(const Fw& a) {
 // becomes the next step's E. The last word of a holds 16 bits, and its
 // step reduces by 2^16 with n0. After each step T < b + p.
 //
+// The body on NW words (NW odd, p in the NW - 1 words of f.p; F is FieldW
+// or MontW<NW>): R = 2^(32 NW - 16), NW - 1 steps of 2^32 and one of 2^16.
+template <int NW, class F>
+__device__ __forceinline__ void mont_words(const F& f,
+                                           const uint32_t (&a)[NW],
+                                           const uint32_t (&b)[NW],
+                                           uint32_t (&c)[NW]) {
+  static_assert(NW % 2 == 1, "b's even words end the E chain");
+  constexpr int PW = NW - 1;             // words of p
+  uint32_t E[NW + 1], O[NW];
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint32_t ai = a[i];
+    // O = ai b_odd (O's pair k holds the product of b's word 2k + 1)
+#pragma unroll
+    for (int j = 1; j < NW; j += 2) {
+      const uint64_t x = static_cast<uint64_t>(ai) * b[j];
+      O[j - 1] = static_cast<uint32_t>(x);
+      O[j] = static_cast<uint32_t>(x >> 32);
+    }
+    O[NW - 1] = 0;
+    // E += ai b_even
+    if (i == 0) {
+#pragma unroll
+      for (int j = 0; j < NW; j += 2) {
+        const uint64_t x = static_cast<uint64_t>(ai) * b[j];
+        E[j] = static_cast<uint32_t>(x);
+        E[j + 1] = static_cast<uint32_t>(x >> 32);
+      }
+    } else {
+      E[0] = mad_lo_cc(ai, b[0], E[0]);
+      E[1] = madc_hi_cc(ai, b[0], E[1]);
+#pragma unroll
+      for (int j = 2; j < NW - 1; j += 2) {
+        E[j] = madc_lo_cc(ai, b[j], E[j]);
+        E[j + 1] = madc_hi_cc(ai, b[j], E[j + 1]);
+      }
+      E[NW - 1] = madc_lo_cc(ai, b[NW - 1], E[NW - 1]);
+      E[NW] = madc_hi(ai, b[NW - 1], E[NW]);
+    }
+    // T += m p, m = T mod 2^32 times n0w (n0 and 2^16 in the last step)
+    const uint32_t m = i < NW - 1 ? E[0] * f.n0w : (E[0] * f.n0) & 0xFFFFu;
+    E[0] = mad_lo_cc(m, f.p[0], E[0]);
+    E[1] = madc_hi_cc(m, f.p[0], E[1]);
+#pragma unroll
+    for (int j = 2; j < PW; j += 2) {
+      E[j] = madc_lo_cc(m, f.p[j], E[j]);
+      E[j + 1] = madc_hi_cc(m, f.p[j], E[j + 1]);
+    }
+    E[PW] = addc_cc(E[PW], 0);
+    E[NW] = addc(E[NW], 0);
+    O[0] = mad_lo_cc(m, f.p[1], O[0]);
+    O[1] = madc_hi_cc(m, f.p[1], O[1]);
+#pragma unroll
+    for (int j = 3; j < PW; j += 2) {
+      O[j - 1] = madc_lo_cc(m, f.p[j], O[j - 1]);
+      O[j] = madc_hi_cc(m, f.p[j], O[j]);
+    }
+    O[PW] = addc(O[PW], 0);
+    if (i < NW - 1) {
+      // T / 2^32 (E[0] is zero now): E = E[1..] + O
+      E[0] = add_cc(E[1], O[0]);
+#pragma unroll
+      for (int k = 1; k < NW - 1; ++k) E[k] = addc_cc(E[k + 1], O[k]);
+      E[NW - 1] = addc(E[NW], O[NW - 1]);
+      E[NW] = 0;
+    }
+  }
+  // T / 2^16: T's words are E[0] and E[k] + O[k - 1]
+  uint32_t t[NW + 1];
+  t[0] = E[0];
+  t[1] = add_cc(E[1], O[0]);
+#pragma unroll
+  for (int k = 2; k < NW; ++k) t[k] = addc_cc(E[k], O[k - 1]);
+  t[NW] = addc(E[NW], O[NW - 1]);
+#pragma unroll
+  for (int j = 0; j < NW; ++j) c[j] = __funnelshift_r(t[j], t[j + 1], 16);
+}
+
+// The Fq product of the curve and tower bodies.
+//
 // One out-of-line copy, its operands and result passed by value (in
 // registers), serves every product of a body: inlined at each of a G2
 // add's 60 products, the code grew to ~100,000 instructions, and fetching
 // them, not the arithmetic, set the kernels' time.
 __device__ __noinline__ Fw mont(const FieldW& f, Fw a, Fw b) {
-  uint32_t E[kWords + 1], O[kWords];
-#pragma unroll
-  for (int i = 0; i < kWords; ++i) {
-    const uint32_t ai = a.w[i];
-    // O = ai b_odd (O's pair k holds the product of b's word 2k + 1)
-#pragma unroll
-    for (int j = 1; j < kWords; j += 2) {
-      const uint64_t x = static_cast<uint64_t>(ai) * b.w[j];
-      O[j - 1] = static_cast<uint32_t>(x);
-      O[j] = static_cast<uint32_t>(x >> 32);
-    }
-    O[kWords - 1] = 0;
-    // E += ai b_even
-    if (i == 0) {
-#pragma unroll
-      for (int j = 0; j < kWords; j += 2) {
-        const uint64_t x = static_cast<uint64_t>(ai) * b.w[j];
-        E[j] = static_cast<uint32_t>(x);
-        E[j + 1] = static_cast<uint32_t>(x >> 32);
-      }
-    } else {
-      E[0] = mad_lo_cc(ai, b.w[0], E[0]);
-      E[1] = madc_hi_cc(ai, b.w[0], E[1]);
-#pragma unroll
-      for (int j = 2; j < kWords - 1; j += 2) {
-        E[j] = madc_lo_cc(ai, b.w[j], E[j]);
-        E[j + 1] = madc_hi_cc(ai, b.w[j], E[j + 1]);
-      }
-      E[kWords - 1] = madc_lo_cc(ai, b.w[kWords - 1], E[kWords - 1]);
-      E[kWords] = madc_hi(ai, b.w[kWords - 1], E[kWords]);
-    }
-    // T += m p, m = T mod 2^32 times n0w (n0 and 2^16 in the last step)
-    const uint32_t m = i < kWords - 1 ? E[0] * f.n0w
-                                      : (E[0] * f.n0) & 0xFFFFu;
-    E[0] = mad_lo_cc(m, f.p[0], E[0]);
-    E[1] = madc_hi_cc(m, f.p[0], E[1]);
-#pragma unroll
-    for (int j = 2; j < kPWords; j += 2) {
-      E[j] = madc_lo_cc(m, f.p[j], E[j]);
-      E[j + 1] = madc_hi_cc(m, f.p[j], E[j + 1]);
-    }
-    E[kPWords] = addc_cc(E[kPWords], 0);
-    E[kWords] = addc(E[kWords], 0);
-    O[0] = mad_lo_cc(m, f.p[1], O[0]);
-    O[1] = madc_hi_cc(m, f.p[1], O[1]);
-#pragma unroll
-    for (int j = 3; j < kPWords; j += 2) {
-      O[j - 1] = madc_lo_cc(m, f.p[j], O[j - 1]);
-      O[j] = madc_hi_cc(m, f.p[j], O[j]);
-    }
-    O[kPWords] = addc(O[kPWords], 0);
-    if (i < kWords - 1) {
-      // T / 2^32 (E[0] is zero now): E = E[1..] + O
-      E[0] = add_cc(E[1], O[0]);
-#pragma unroll
-      for (int k = 1; k < kWords - 1; ++k) E[k] = addc_cc(E[k + 1], O[k]);
-      E[kWords - 1] = addc(E[kWords], O[kWords - 1]);
-      E[kWords] = 0;
-    }
-  }
-  // T / 2^16: T's words are E[0] and E[k] + O[k - 1]
-  uint32_t t[kWords + 1];
-  t[0] = E[0];
-  t[1] = add_cc(E[1], O[0]);
-#pragma unroll
-  for (int k = 2; k < kWords; ++k) t[k] = addc_cc(E[k], O[k - 1]);
-  t[kWords] = addc(E[kWords], O[kWords - 1]);
   Fw c;
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) c.w[j] = __funnelshift_r(t[j], t[j + 1], 16);
+  mont_words<kWords>(f, a.w, b.w, c.w);
   return c;
 }
 

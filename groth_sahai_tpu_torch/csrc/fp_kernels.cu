@@ -6,18 +6,35 @@
 //   gs_redc      <- pallas_fp.redc      (_redc_kernel)
 //   gs_pow_const <- pallas_fp.pow_const (_pow_chain_kernel)
 //
-// Work split: mont_mul, mul_wide and redc (and pow_const over Fr) run one
-// thread per lane (batch element), its 16-bit limbs in registers
-// (field.cuh). The batch is flattened to M lanes; a limb-major int64 array
-// [rows, M] (the port's tensor layout) puts limb i of lane l at i*M + l, so
-// the threads of a warp read neighbouring words. The grid covers M with a
-// masked tail; nothing is carried between blocks.
+// Work split: mul_wide and redc (and pow_const over Fr) run one thread per
+// lane (batch element), its 16-bit limbs in registers (field.cuh). The
+// batch is flattened to M lanes; a limb-major int64 array [rows, M] (the
+// port's tensor layout) puts limb i of lane l at i*M + l, so the threads of
+// a warp read neighbouring words. The grid covers M with a masked tail;
+// nothing is carried between blocks.
 //
-// What bounds them on the H100: each lane does 2N^2 (mont_mul), N^2
-// (mul_wide) or N^2 (redc) 32-bit multiply-adds and moves 8 bytes per
-// limb. Over the 8192-lane batches of the unfused pairing path a launch
-// moves a few MB, so these three are bound by launch count and
-// device-memory bytes, not by the multiplier.
+// What bounds them on the H100: each lane does N^2 (mul_wide) or N^2
+// (redc) 32-bit multiply-adds and moves 8 bytes per limb. Over the
+// 8192-lane batches of the unfused pairing path a launch moves a few MB,
+// so these two are bound by launch count and device-memory bytes, not by
+// the multiplier.
+//
+// mont_mul moves 24 bytes a limb (a, b, out; 600 B a lane for Fq) and is
+// bound by bytes at 16384 lanes (pairing-8192's FQ2.mul_fq: 9.8 MB), but
+// one thread a lane over 16-bit digits (2 N^2 = 1,250 multiply-adds for Fq,
+// 128 blocks of 128 threads) left 4 of the 132 SMs idle and one warp on
+// each scheduler, so nothing hid its loads or its chain of products, and
+// at the verify and prove paths' narrow calls one product's latency is the
+// launch's time. Its design (mont_mul_kernel): the operands as packed
+// 32-bit words at the same R (Fq 13 words, R = 2^400; Fr 9, R = 2^272),
+// each product split over a group of kMulGroup threads of one warp
+// (field_split_w32.cuh: NW steps of a few multiply-adds a thread and two
+// shuffles), in blocks of kMulThreads threads, so that 16384 lanes make
+// 16384 kMulGroup / kMulThreads blocks over every SM. kMulGroup is the
+// fastest of 1 (field_w32.cuh's one-thread mont_words), 2, 4 and 8 at
+// every shape timed (utils/fp_variants.py --mont): 4 for Fq (16384 lanes
+// and verify's 21, 1336 and 8), 8 for Fr (1.2x G = 4 at its shapes, where
+// each thread's two columns of the 16-column window hold the 9 words).
 //
 // pow_const over Fq is a Fermat chain (e = p - 2: 381 squares and 229
 // products, 610 dependent Montgomery products a lane), launched over 2 to
@@ -65,17 +82,75 @@ __device__ __forceinline__ void store(int64_t* dst, int64_t m, int64_t lane,
   for (int j = 0; j < K; ++j) dst[j * m + lane] = x[j];
 }
 
-template <int N>
-__global__ void __launch_bounds__(kThreads)
-mont_mul_kernel(gs::Field<N> f, const int64_t* a, const int64_t* b,
-                int64_t* out, int64_t m) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (lane >= m) return;
-  uint32_t x[N], y[N], z[N];
-  load<N>(a, m, lane, x);
-  load<N>(b, m, lane, y);
-  gs::mont_mul<N>(f, x, y, z);
-  store<N>(out, m, lane, z);
+// Threads a lane of mont_mul, by field (1: field_w32.cuh's one-thread
+// mont_words; 2 to 8: the product split over the group), and threads a
+// block.
+constexpr int kMulGroupFq = 4;
+constexpr int kMulGroupFr = 8;
+constexpr int kMulThreads = 64;
+
+// Word k of lane `lane` of an [2 NW - 1, M] batch of 16-bit limbs, packed
+// (a limb's value is its int64's low word).
+template <int NW>
+__device__ __forceinline__ uint32_t load_word(const int64_t* src, int64_t m,
+                                              int64_t lane, int k) {
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
+  const int64_t at = 2 * k * m + lane;
+  const uint32_t lo = __ldg(s + 2 * at);
+  const uint32_t hi = 2 * k + 1 < 2 * NW - 1 ? __ldg(s + 2 * (at + m)) : 0u;
+  return lo | hi << 16;
+}
+
+// Word k's 16-bit limbs to lane `lane` of dst [2 NW - 1, M].
+template <int NW>
+__device__ __forceinline__ void store_word(int64_t* dst, int64_t m,
+                                           int64_t lane, int k, uint32_t w) {
+  dst[2 * k * m + lane] = w & 0xFFFFu;
+  if (2 * k + 1 < 2 * NW - 1) dst[(2 * k + 1) * m + lane] = w >> 16;
+}
+
+// a b R^-1 mod p over NW packed words (pallas_fp._mont_mul_kernel), G
+// consecutive threads a lane. G = 1: field_w32.cuh's mont_words in the
+// lane's thread. G > 1: every thread reads a whole (the split's broadcast
+// operand) and its own words of b, and stores its own words of the
+// product (field_split_w32.cuh); the product takes every thread of the
+// warp, so a ragged block's spare groups work the last lane and store
+// nothing.
+template <int G, int NW>
+__global__ void __launch_bounds__(kMulThreads)
+mont_mul_kernel(const __grid_constant__ gs::w32::MontW<NW> f,
+                const int64_t* a, const int64_t* b, int64_t* out, int64_t m) {
+  const int64_t at =
+      (static_cast<int64_t>(blockIdx.x) * kMulThreads + threadIdx.x) / G;
+  const int64_t lane = at < m ? at : m - 1;
+  uint32_t x[NW];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) x[k] = load_word<NW>(a, m, lane, k);
+  if constexpr (G == 1) {
+    uint32_t y[NW], z[NW];
+#pragma unroll
+    for (int k = 0; k < NW; ++k) y[k] = load_word<NW>(b, m, lane, k);
+    gs::w32::mont_words<NW>(f, x, y, z);
+    if (at >= m) return;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) store_word<NW>(out, m, lane, k, z[k]);
+  } else {
+    using S = gs::w32::Split<G, NW>;
+    const S s(f);
+    uint32_t y[S::K], z[S::K];
+#pragma unroll
+    for (int k = 0; k < S::K; ++k) {
+      const int j = s.g * S::K + k;
+      y[k] = j < NW ? load_word<NW>(b, m, lane, j) : 0u;
+    }
+    s.mont(f, x, y, z);
+    if (at >= m) return;
+#pragma unroll
+    for (int k = 0; k < S::K; ++k) {
+      const int j = s.g * S::K + k;
+      if (j < NW) store_word<NW>(out, m, lane, j, z[k]);
+    }
+  }
 }
 
 template <int N>
@@ -184,12 +259,14 @@ unsigned grid_of(int64_t m) {
   return static_cast<unsigned>((m + kThreads - 1) / kThreads);
 }
 
-template <int N>
+template <int NW, int G>
 int launch_mont_mul(const int64_t* a, const int64_t* b, int64_t* out,
                     int64_t m, const uint32_t* p, uint32_t n0,
                     cudaStream_t s) {
-  mont_mul_kernel<N><<<grid_of(m), kThreads, 0, s>>>(
-      gs::make_field<N>(p, nullptr, n0), a, b, out, m);
+  const auto grid =
+      static_cast<unsigned>((m * G + kMulThreads - 1) / kMulThreads);
+  mont_mul_kernel<G, NW><<<grid, kMulThreads, 0, s>>>(
+      gs::w32::make_mont_w<NW>(p, n0), a, b, out, m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -236,8 +313,8 @@ int gs_mont_mul(int nl, const int64_t* a, const int64_t* b, int64_t* out,
                 int64_t m, const uint32_t* p, uint32_t n0, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   switch (nl) {
-    case 25: return launch_mont_mul<25>(a, b, out, m, p, n0, s);
-    case 17: return launch_mont_mul<17>(a, b, out, m, p, n0, s);
+    case 25: return launch_mont_mul<13, kMulGroupFq>(a, b, out, m, p, n0, s);
+    case 17: return launch_mont_mul<9, kMulGroupFr>(a, b, out, m, p, n0, s);
     default: return -1;
   }
 }

@@ -1,5 +1,5 @@
-// In-thread Fq2 / Fq12 formulas of the one-thread tower kernels cyc_sqr,
-// miller_dbl_step and miller_add_step.
+// In-thread Fq2 / Fq12 formulas of the one-thread tower kernels cyc_sqr
+// and miller_add_step.
 //
 // Port of the in-kernel tower math of groth_sahai_tpu/ops/pallas_tower.py
 // (_f2_mul, _f12_post_red, _cyc_sqr_body, and the Miller step bodies at the
@@ -158,11 +158,12 @@ __device__ __noinline__ void cyc_sqr_red(const FieldQ& f, const Fp12& a,
 
 // ------------------------------------------------ the Miller step bodies
 //
-// pallas_tower.py's in-kernel helpers of the Miller steps (_f2_mulred,
-// _f2_sqrred, _f2_mul_fq, _dbl_step_body, _add_step_body), step for
-// step: the same k p offsets and the same post-reductions, so the limbs equal the
-// reference's. Every Fq2 product of the point steps is post-reduced to
-// < 2p (mont-by-one), as in the reference.
+// pallas_tower.py's in-kernel helpers of the Miller addition step
+// (_f2_mulred, _f2_sqrred, _add_step_body), step for step: the same k p
+// offsets and the same post-reductions, so the limbs equal the
+// reference's. Every Fq2 product of the step is post-reduced to < 2p
+// (mont-by-one), as in the reference. (The doubling step is
+// tower_w32.cuh's miller_dbl_step.)
 
 // Fq2 product, both components post-reduced to < 2p (_f2_mulred; the
 // square _f2_sqrred is f2_mulred(a, a)).
@@ -173,68 +174,11 @@ __device__ __noinline__ void f2_mulred(const FieldQ& f, const Fp2& a,
   mm(f, c[1], f.one, c[1]);
 }
 
-// Fq2 times an Fq scalar s (both < 8p): componentwise mont, out < 2p
-// (_f2_mul_fq).
-__device__ __forceinline__ void f2_mul_fq(const FieldQ& f, const Fp2& a,
-                                          const Fp& s, Fp2& c) {
-  mm(f, a[0], s, c[0]);
-  mm(f, a[1], s, c[1]);
-}
-
-// 3 a = 2 a + a, per component.
-__device__ __forceinline__ void f2_triple(const Fp2& a, Fp2& c) {
-  dbl<N>(a[0], c[0]);
-  add<N>(c[0], a[0], c[0]);
-  dbl<N>(a[1], c[1]);
-  add<N>(c[1], a[1], c[1]);
-}
-
 // k p - a per component; bound(a) <= k p.
 __device__ __forceinline__ void f2_neg(const FieldQ& f, const Fp2& a,
                                        uint32_t k, Fp2& c) {
   neg_k<N>(a[0], k, f.p, c[0]);
   neg_k<N>(a[1], k, f.p, c[1]);
-}
-
-// Projective doubling step (_dbl_step_body): R = (X, Y, Z) with X, Z < 2p,
-// Y < 10p -> (X3 < 2p, Y3 < 10p, Z3 < 2p) and the line (l0 = i < 50p,
-// l1 = 3j < 6p, l2 = -h < 8p). tinv = 1/2 in Montgomery form. 49
-// Montgomery products (nine post-reduced Fq2 products of 5, two Fq2 x Fq
-// of 2). Outputs must not alias inputs.
-__device__ __noinline__ void dbl_step_body(const FieldQ& f, const Fp& tinv,
-                                           const Fp2& X, const Fp2& Y,
-                                           const Fp2& Z, Fp2& X3, Fp2& Y3,
-                                           Fp2& Z3, Fp2& l0, Fp2& l1,
-                                           Fp2& l2) {
-  Fp2 a, b, c, j, e, ff, g, h, t, u;
-  // a = X Y / 2 ; b = Y^2 ; c = Z^2 ; j = X^2
-  f2_mulred(f, X, Y, t);
-  f2_mul_fq(f, t, tinv, a);                    // < 2p
-  f2_mulred(f, Y, Y, b);
-  f2_mulred(f, Z, Z, c);
-  f2_mulred(f, X, X, j);
-  // e = 3c * b_twist = 12 xi(c)  (b = 4(u+1))
-  sub_k<N>(c[0], c[1], 2, f.p, t[0]);
-  mul_small<N>(t[0], 12, e[0]);
-  add<N>(c[0], c[1], t[1]);
-  mul_small<N>(t[1], 12, e[1]);               // < 48p
-  f2_triple(e, ff);                            // f = 3e < 144p
-  f2_add(b, ff, t);
-  f2_mul_fq(f, t, tinv, g);                    // (2p+144p) tinv mont < 2p
-  f2_add(Y, Z, t);
-  f2_mulred(f, t, t, u);
-  f2_add(b, c, t);
-  f2_sub(f, u, t, 4, h);                       // < 6p
-  f2_sub(f, e, b, 2, l0);                      // i < 50p
-  f2_mulred(f, e, e, u);                       // e2 < 2p
-  f2_sub(f, b, ff, 144, t);
-  f2_mulred(f, a, t, X3);                      // < 2p
-  f2_mulred(f, g, g, t);
-  f2_triple(u, e);                             // 3 e2
-  f2_sub(f, t, e, 8, Y3);                      // < 10p
-  f2_mulred(f, b, h, Z3);
-  f2_triple(j, l1);                            // 3j < 6p
-  f2_neg(f, h, 8, l2);                         // -h < 8p
 }
 
 // Mixed addition step with affine Q (_add_step_body): R with Y < 10p ->

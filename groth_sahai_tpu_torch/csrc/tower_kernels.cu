@@ -21,7 +21,7 @@
 //
 // Work split: an Fq12 batch is int64 [25, 12, M] (limb i of coefficient c
 // of lane l at (12 i + c) M + l), an Fq2 batch [25, 2, M], an Fq batch
-// [25, M], Fr scalars [17, M]. Three kernels (cyc_sqr and the two steps)
+// [25, M], Fr scalars [17, M]. Two kernels (cyc_sqr and the addition step)
 // run one thread per lane, as in fp_kernels.cu, in blocks of 32 threads
 // that spread the few thousand lanes of these calls over all 132 SMs.
 //
@@ -35,8 +35,9 @@
 // batches the real limit is the latency of one thread's long chain of
 // products, each about 5.5 us.
 //
-// fq12_mul, cyc_pow, f12_pow_dyn, miller_iter_dbl and miller_iter_add are
-// designed for that limit (tower_w32.cuh over group_w32.cuh):
+// fq12_mul, cyc_pow, f12_pow_dyn, miller_iter_dbl, miller_iter_add and
+// miller_dbl_step are designed for that limit (tower_w32.cuh over
+// group_w32.cuh):
 //   * an Fq value is 13 packed 32-bit words at the same R = 2^400, and
 //     every product is field_w32.cuh's out-of-line `mont` with its
 //     operands and result in registers, so the limbs at the boundary do
@@ -45,10 +46,11 @@
 //     independent Montgomery products of each level of a formula go
 //     round-robin to the group's threads, levels separated by __syncwarp
 //     of the group, so a lane's chain of products shrinks from 2,316
-//     (cyc_pow, e = |x|), 176 (a doubling iteration) and 126 (an addition
-//     iteration) to the levels' rounds of products: a cyclotomic square 2
-//     and an Fq12 product 3 at cyc_pow's G = 32 (146 for e = |x|), a
-//     doubling iteration 25 and an addition iteration 17 at G = 8, an Fq12
+//     (cyc_pow, e = |x|), 176 (a doubling iteration), 126 (an addition
+//     iteration) and 49 (a doubling step) to the levels' rounds of
+//     products: a cyclotomic square 2 and an Fq12 product 3 at cyc_pow's
+//     G = 32 (146 for e = |x|), a doubling iteration 25 and an addition
+//     iteration 17 at G = 8, a doubling step 14 at G = 4, an Fq12
 //     product 5 at fq12_mul's G = 16; f12_pow_dyn's 272 squares and its
 //     products on set bits are Fq12 products of 5 rounds each at its
 //     G = 16 (about 2,000 rounds for a random 255-bit scalar where one
@@ -68,11 +70,16 @@
 //     f12_pow_dyn runs over 4096 and 1024 lanes (gt-exp-4096), where G = 16
 //     is the fastest at 1024 and within 1.09x of G = 4 at 4096 (there the
 //     card is full, and a larger G leaves more of a warp's threads idle in
-//     the levels of 9 and 12 tasks: G = 32 is 1.16x slower);
+//     the levels of 9 and 12 tasks: G = 32 is 1.16x slower); the doubling
+//     step's kDblStepGroup = 4 is the fastest of 4, 8 and 16 over
+//     miller-steps-4096's 4096 lanes (utils/tower_variants.py --step: 2 %
+//     ahead of G = 8, 17 % of G = 16; with 4 threads a lane its 4096 lanes
+//     are 512 blocks of 32 threads, about four a SM);
 //   * the lane's values (its Fq12 values, R, the leaves and Karatsuba
 //     values of each level) live in the group's shared memory, 13 words
 //     an Fq slot: 108 slots for fq12_mul, cyc_pow and f12_pow_dyn, 133
-//     for the doubling iteration, 118 for the addition iteration; blocks
+//     for the doubling iteration, 118 for the addition iteration, 41 for
+//     the doubling step; blocks
 //     of kGroupLanes lanes (55 KB of shared memory a block for the
 //     doubling iteration: four blocks an SM hold verify's 4096 lanes in
 //     one wave). Inactive lanes of a ragged block leave as whole groups.
@@ -106,6 +113,7 @@ constexpr int kCycPowGroup = 32;
 constexpr int kDblGroup = 8;
 constexpr int kAddGroup = 8;
 constexpr int kPowDynGroup = 16;
+constexpr int kDblStepGroup = 4;
 constexpr int kGroupLanes = 8;
 
 // cyc_pow's and f12_pow_dyn's slots: a, two accumulators, the leaves, the
@@ -271,11 +279,6 @@ cyc_sqr_kernel(const __grid_constant__ FieldQ f, const int64_t* a,
   store12(out, m, lane, z);
 }
 
-// An Fq constant of a launch (1/2 in Montgomery form), by value.
-struct FqConst {
-  Fp v;
-};
-
 // One Miller doubling iteration (_miller_iter_dbl_kernel): f <- f^2 *
 // line_{R,R}(P), R <- 2R. f < 2p; R = (X, Y, Z) with X, Z < 2p, Y < 10p;
 // P = (px, py) < p. Outputs: f < 2p and R in the same bounds. A group of G
@@ -352,27 +355,33 @@ miller_iter_add_kernel(const __grid_constant__ TowerW t, const int64_t* fin,
 
 // The Miller doubling step alone (_miller_dbl_kernel): R <- 2R and the
 // line (l0, l1, l2) = (i, 3j, -h), not yet scaled by P. R = (X, Y, Z) with
-// X, Z < 2p, Y < 10p; outputs in the bounds of dbl_step_body.
-__global__ void __launch_bounds__(kThreads)
-miller_dbl_step_kernel(const __grid_constant__ FieldQ f,
-                       const __grid_constant__ FqConst tinv,
-                       const int64_t* xin, const int64_t* yin,
-                       const int64_t* zin, int64_t* xout, int64_t* yout,
-                       int64_t* zout, int64_t* l0out, int64_t* l1out,
-                       int64_t* l2out, int64_t m) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+// X, Z < 2p, Y < 10p; outputs X3, Z3 < 2p, Y3 < 10p, l0 < 50p, l1 < 6p,
+// l2 < 8p. A group of G threads works a lane, in the five levels of
+// tower_w32.cuh miller_dbl_step (the iteration's point levels).
+template <int G>
+__global__ void __launch_bounds__(kGroupLanes * G)
+miller_dbl_step_kernel(const __grid_constant__ TowerW t, const int64_t* xin,
+                       const int64_t* yin, const int64_t* zin,
+                       int64_t* xout, int64_t* yout, int64_t* zout,
+                       int64_t* l0out, int64_t* l1out, int64_t* l2out,
+                       int64_t m) {
+  using S = gs::tw::DblStepSlots;
+  extern __shared__ uint32_t smem[];
+  const int rank = threadIdx.x / G;
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kGroupLanes + rank;
   if (lane >= m) return;
-  Fp2 X, Y, Z, X3, Y3, Z3, l0, l1, l2;
-  load2(xin, m, lane, X);
-  load2(yin, m, lane, Y);
-  load2(zin, m, lane, Z);
-  dbl_step_body(f, tinv.v, X, Y, Z, X3, Y3, Z3, l0, l1, l2);
-  store2(xout, m, lane, X3);
-  store2(yout, m, lane, Y3);
-  store2(zout, m, lane, Z3);
-  store2(l0out, m, lane, l0);
-  store2(l1out, m, lane, l1);
-  store2(l2out, m, lane, l2);
+  const auto grp = gs::tw::group_of<G>(smem + rank * lane_words(S::kSlots));
+  gs::tw::level(grp, 6, [&](int k) {       // X, Y, Z
+    const int64_t* c = k < 2 ? xin : k < 4 ? yin : zin;
+    grp.st(S::kPt + k, load_coef(c, 2, k % 2, m, lane));
+  });
+  gs::tw::miller_dbl_step(t, grp, [&](gs::tw::DblOut kind, int c,
+                                      const Fw& v) {
+    using namespace gs::tw;
+    store_coef(kind == kOutX ? xout : kind == kOutY ? yout
+               : kind == kOutZ ? zout : kind == kOutL0 ? l0out
+               : kind == kOutL1 ? l1out : l2out, 2, c, m, lane, v);
+  });
 }
 
 // The Miller addition step alone (_miller_add_kernel): R <- R + Q with Q
@@ -562,12 +571,16 @@ int gs_miller_dbl_step(int nl, const int64_t* xin, const int64_t* yin,
                        int64_t m, const uint32_t* p, const uint32_t* one,
                        const uint32_t* tinv, uint32_t n0, void* stream) {
   if (nl != N) return -1;
-  FqConst t;
-  for (int j = 0; j < N; ++j) t.v[j] = tinv[j];
-  miller_dbl_step_kernel<<<grid_of(m), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      gs::make_field<N>(p, one, n0), t, xin, yin, zin, xout, yout, zout, l0,
-      l1, l2, m);
+  constexpr int G = kDblStepGroup;
+  constexpr int bytes =
+      kGroupLanes * lane_words(gs::tw::DblStepSlots::kSlots) * 4;
+  static const cudaError_t attr =
+      allow_smem(miller_dbl_step_kernel<G>, bytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  miller_dbl_step_kernel<G><<<group_grid_of(m), kGroupLanes * G, bytes,
+                              static_cast<cudaStream_t>(stream)>>>(
+      gs::tw::make_tower_w(p, one, n0, tinv), xin, yin, zin, xout, yout,
+      zout, l0, l1, l2, m);
   return static_cast<int>(cudaGetLastError());
 }
 

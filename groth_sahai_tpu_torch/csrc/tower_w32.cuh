@@ -1,6 +1,7 @@
 // The Fq2 / Fq6 / Fq12 formulas of the kernels fq12_mul, cyc_pow,
-// f12_pow_dyn, miller_iter_dbl and miller_iter_add on packed 32-bit words
-// (field_w32.cuh), worked by a group of G threads per lane.
+// f12_pow_dyn, miller_iter_dbl, miller_iter_add and miller_dbl_step on
+// packed 32-bit words (field_w32.cuh), worked by a group of G threads per
+// lane.
 //
 // The formulas, k p offsets and post-reductions are the reference's
 // (pallas_tower.py: _f2_mul, _f6_mul, _f12_mul, _f12_post_red,
@@ -9,8 +10,8 @@
 // (ops/cuda_tower.py) write them, step for step: every value is the same
 // integer, so the 16-bit limbs at the boundary equal the plain versions'. An Fq value is 13 packed
 // words at R = 2^400, and every Montgomery product is field_w32.cuh's
-// out-of-line `mont`, operands and result in registers. mul12 is
-// mul_small(., 12).
+// out-of-line `mont`, operands and result in registers. mul12 is the
+// reference's mul_small(., 12).
 //
 // What changes is who computes what, and where values live: a group of G
 // threads works each lane, level by level, over the lane's Fq slots in
@@ -365,33 +366,60 @@ struct DblSlots {
                        kD3 = 117, kSlots = 133;
 };
 
-// The values the iteration writes to the lane's outputs.
-enum DblOut { kOutF, kOutX, kOutY, kOutZ };
+// The values the iteration and the step write to the lane's outputs.
+enum DblOut { kOutF, kOutX, kOutY, kOutZ, kOutL0, kOutL1, kOutL2 };
+
+// The point levels' helpers below read the point, XY .. u and a .. b h at
+// slots S::kPt, S::kD2 and S::kD3 (DblSlots for the iteration,
+// DblStepSlots for the step).
 
 // e = 12 xi(c) (< 48p), component u.
-template <int G>
+template <class S, int G>
 __device__ __forceinline__ Fw dbl_e(const TowerW& t, const Group<G>& grp,
                                     int u) {
-  constexpr int C = DblSlots::kD2 + 4;
+  constexpr int C = S::kD2 + 4;
   const Fw c0 = grp.ld(C), c1 = grp.ld(C + 1);
   return mul12(u == 0 ? subk(t, c0, c1, K2) : add(c0, c1));
 }
 
 // h = u - (b + c) + 4p (< 6p), component uu.
-template <int G>
+template <class S, int G>
 __device__ __forceinline__ Fw dbl_h(const TowerW& t, const Group<G>& grp,
                                     int uu) {
-  constexpr int D2 = DblSlots::kD2;
+  constexpr int D2 = S::kD2;
   return subk(t, grp.ld(D2 + 8 + uu),
               add(grp.ld(D2 + 2 + uu), grp.ld(D2 + 4 + uu)), K4);
 }
 
+// The raw line (l0, l1, l2) = (e - b + 2p < 50p, 3j < 6p, 8p - h < 8p),
+// component u: no product.
+template <class S, int G>
+__device__ __forceinline__ Fw dbl_l0(const TowerW& t, const Group<G>& grp,
+                                     int u) {
+  return subk(t, dbl_e<S>(t, grp, u), grp.ld(S::kD2 + 2 + u), K2);
+}
+template <class S, int G>
+__device__ __forceinline__ Fw dbl_l1(const Group<G>& grp, int u) {
+  return triple(grp.ld(S::kD2 + 6 + u));
+}
+template <class S, int G>
+__device__ __forceinline__ Fw dbl_l2(const TowerW& t, const Group<G>& grp,
+                                     int u) {
+  return negk(t, dbl_h<S>(t, grp, u), K8);
+}
+
+// Y3 = g^2 - 3 e^2 + 8p (< 10p) from g^2 and e^2 post-reduced (< 2p).
+__device__ __forceinline__ Fw dbl_y3(const TowerW& t, const Fw& g2,
+                                     const Fw& e2) {
+  return subk(t, g2, triple(e2), K8);
+}
+
 // Level A, point step: leaf d < 15 (Karatsuba leaf d % 3 of the Fq2
 // product d / 3 of X Y, Y Y, Z Z, X X, (Y + Z)(Y + Z)).
-template <int G>
+template <class S, int G>
 __device__ __forceinline__ void dbl_leaf_ops(const Group<G>& grp, int d,
                                              Fw& x, Fw& y) {
-  constexpr int PT = DblSlots::kPt;
+  constexpr int PT = S::kPt;
   const int n = d / 3;
   const int oa = 0x30210 >> (4 * n) & 15;     // 0 X, 1 Y, 2 Z, 3 Y + Z
   const int ob = 0x30211 >> (4 * n) & 15;
@@ -403,15 +431,17 @@ __device__ __forceinline__ void dbl_leaf_ops(const Group<G>& grp, int d,
            [&](int u) { return comp(ob, u); }, x, y);
 }
 
-// Level C, point step: task d < 14 gives its operands and returns true;
-// d = 14, 15 (l0 = e - b + 2p, no product) stores itself and returns false.
-template <int G>
-__device__ __forceinline__ bool dbl_mid_ops(const TowerW& t,
+// Level C, point step: the operands of task d < 10 (a, g, the leaves of
+// e^2 and of b h, into slots S::kD3 + d) and, for the iteration, d < 14
+// (its line's scaling lb = 3j px, lc = (8p - h) py; px, py at DblSlots'
+// kPt + 6, + 7).
+template <class S, int G>
+__device__ __forceinline__ void dbl_mid_ops(const TowerW& t,
                                             const Group<G>& grp, int d,
                                             Fw& x, Fw& y) {
-  constexpr int D2 = DblSlots::kD2, D3 = DblSlots::kD3, PT = DblSlots::kPt;
+  constexpr int D2 = S::kD2, PT = S::kPt;
   const int u = d % 2;
-  const auto e = [&](int uu) { return dbl_e(t, grp, uu); };
+  const auto e = [&](int uu) { return dbl_e<S>(t, grp, uu); };
   if (d < 2) {                                   // a = XY tinv
     x = grp.ld(D2 + u);
     y = words_of(t.tinv);
@@ -422,18 +452,14 @@ __device__ __forceinline__ bool dbl_mid_ops(const TowerW& t,
     kara_ops(d - 4, e, e, x, y);
   } else if (d < 10) {                           // b h
     kara_ops(d - 7, [&](int uu) { return grp.ld(D2 + 2 + uu); },
-             [&](int uu) { return dbl_h(t, grp, uu); }, x, y);
+             [&](int uu) { return dbl_h<S>(t, grp, uu); }, x, y);
   } else if (d < 12) {                           // lb = 3j px
-    x = triple(grp.ld(D2 + 6 + u));
+    x = dbl_l1<S>(grp, u);
     y = grp.ld(PT + 6);
-  } else if (d < 14) {                           // lc = (8p - h) py
-    x = negk(t, dbl_h(t, grp, u), K8);
+  } else {                                       // lc = (8p - h) py
+    x = dbl_l2<S>(t, grp, u);
     y = grp.ld(PT + 7);
-  } else {                                       // l0 = e - b + 2p
-    grp.st(D3 + d, subk(t, e(u), grp.ld(D2 + 2 + u), K2));
-    return false;
   }
-  return true;
 }
 
 // The sparse line product f (la + lb v + lc v w) (_sparse_line_mul),
@@ -466,19 +492,19 @@ __device__ __forceinline__ void sparse_leaf_ops(const Group<G>& grp, int F,
 // slot kLeaf + 45 + d; d = 2, 3 are Z3's components): e^2 and Z3 = b h
 // post-reduced (x times R mod p), and the leaves of X3 = a (b - 3e + 144p)
 // and of g^2.
-template <int G>
+template <class S, int G>
 __device__ __forceinline__ void dbl_late_ops(const TowerW& t,
                                              const Group<G>& grp, int d,
                                              Fw& x, Fw& y) {
-  constexpr int D2 = DblSlots::kD2, D3 = DblSlots::kD3;
+  constexpr int D2 = S::kD2, D3 = S::kD3;
   if (d < 4) {                                   // e^2, Z3
     x = kara(t, grp, D3 + (d < 2 ? 4 : 7), d % 2);
     y = words_of(t.f.one);
   } else if (d < 7) {                            // a (b - 3e + 144p)
     kara_ops(d - 4, [&](int u) { return grp.ld(D3 + u); },
              [&](int u) {
-               return subk(t, grp.ld(D2 + 2 + u), triple(dbl_e(t, grp, u)),
-                           K144);
+               return subk(t, grp.ld(D2 + 2 + u),
+                           triple(dbl_e<S>(t, grp, u)), K144);
              }, x, y);
   } else {                                       // g g
     const auto g = [&](int u) { return grp.ld(D3 + 2 + u); };
@@ -527,7 +553,7 @@ __device__ __forceinline__ void miller_dbl(const TowerW& t,
     if (k < 54)
       f12_leaf_ops(grp, S::kF, S::kF, k, x, y);
     else
-      dbl_leaf_ops(grp, k - 54, x, y);
+      dbl_leaf_ops<S>(grp, k - 54, x, y);
     grp.st(S::kLeaf + k, w32::mont(t.f, x, y));
   });
   level(grp, 19, [&](int k) {                    // B
@@ -543,9 +569,11 @@ __device__ __forceinline__ void miller_dbl(const TowerW& t,
     if (k < 12) {
       x = f12_comb(t, grp, S::kT6, k, K24, K42);
       y = words_of(t.f.one);
-    } else if (dbl_mid_ops(t, grp, k - 12, x, y)) {
+    } else if (k < 26) {
+      dbl_mid_ops<S>(t, grp, k - 12, x, y);
       to = S::kD3 + k - 12;
-    } else {
+    } else {                                     // l0, no product
+      grp.st(S::kD3 + k - 12, dbl_l0<S>(t, grp, k - 26));
       return;
     }
     grp.st(to, w32::mont(t.f, x, y));
@@ -557,7 +585,7 @@ __device__ __forceinline__ void miller_dbl(const TowerW& t,
                       [&](int u) { return grp.ld(S::kD3 + 14 + u); },
                       S::kD3 + 10, S::kD3 + 12, k, x, y);
     else
-      dbl_late_ops(t, grp, k - 45, x, y);
+      dbl_late_ops<S>(t, grp, k - 45, x, y);
     const Fw r = w32::mont(t.f, x, y);
     if (k == 47 || k == 48)
       out(kOutZ, k - 47, r);
@@ -581,9 +609,81 @@ __device__ __forceinline__ void miller_dbl(const TowerW& t,
       out(kOutF, k, post_red(t, f12_comb(t, grp, S::kT6, k, K12, K18)));
     } else {
       const int u = k - 12;
-      out(kOutY, u, subk(t, grp.ld(S::kD2 + u),
-                         triple(grp.ld(S::kLeaf + 45 + u)), K8));
+      out(kOutY, u, dbl_y3(t, grp.ld(S::kD2 + u), grp.ld(S::kLeaf + 45 + u)));
     }
+  });
+}
+
+// ------------------------------------------------ the Miller doubling step
+//
+// R <- 2R and the raw line (l0, l1, l2) = (e - b + 2p, 3j, 8p - h), not
+// scaled by P (_dbl_step_body): the point half of miller_dbl on the same
+// helpers, without f^2, the sparse product and the line's scaling, in
+// five levels of products:
+//   A  15: the Karatsuba leaves of X Y, Y^2, Z^2, X^2, (Y + Z)^2;
+//   B  10: their post-reductions (XY, b, c, j, u);
+//   C  10: a = XY tinv, g = (b + 3e) tinv, the leaves of e^2 and of b h;
+//          l0, l1, l2 out (no product);
+//   D  10: e^2's and Z3's post-reductions (Z3 out); the leaves of X3 = a
+//          (b - 3e + 144p) and of g^2;
+//   E   4: X3's post-reduction (out); g^2's, then Y3 = g^2 - 3 e^2 + 8p
+//          (out).
+// 49 Montgomery products in 9 rounds of G = 8 threads, 14 of the kernel's
+// G = 4 (tower_kernels.cu kDblStepGroup). k p offsets and
+// bounds as the iteration's point step: X3, Z3 < 2p, Y3 < 10p, l0 < 50p,
+// l1 < 6p, l2 < 8p.
+//
+// The lane's slots: X, Y, Z at kPt; XY, b, c, j, u at kD2; a, g, e^2's
+// leaves, b h's leaves at kD3; A's leaves at kLeaf, then D's: e^2 at 0, 1,
+// X3's leaves at 4 .. 6, g^2's at 7 .. 9.
+struct DblStepSlots {
+  static constexpr int kPt = 0, kD2 = 6, kD3 = 16, kLeaf = 26, kSlots = 41;
+};
+
+// The step after X, Y, Z are in the lane's slots at kPt: out(kind, c, v)
+// takes component c of X3, Y3, Z3, l0, l1, l2.
+template <int G, class Out>
+__device__ __forceinline__ void miller_dbl_step(const TowerW& t,
+                                                const Group<G>& grp,
+                                                Out out) {
+  using S = DblStepSlots;
+  level(grp, 15, [&](int k) {                    // A
+    Fw x, y;
+    dbl_leaf_ops<S>(grp, k, x, y);
+    grp.st(S::kLeaf + k, w32::mont(t.f, x, y));
+  });
+  level(grp, 10, [&](int k) {                    // B
+    grp.st(S::kD2 + k, post_red(t, kara(t, grp, S::kLeaf + 3 * (k / 2),
+                                        k % 2)));
+  });
+  level(grp, 16, [&](int k) {                    // C
+    if (k < 10) {
+      Fw x, y;
+      dbl_mid_ops<S>(t, grp, k, x, y);
+      grp.st(S::kD3 + k, w32::mont(t.f, x, y));
+    } else {
+      const int u = k % 2;
+      out(k < 12 ? kOutL0 : k < 14 ? kOutL1 : kOutL2, u,
+          k < 12 ? dbl_l0<S>(t, grp, u)
+                 : k < 14 ? dbl_l1<S>(grp, u) : dbl_l2<S>(t, grp, u));
+    }
+  });
+  level(grp, 10, [&](int k) {                    // D
+    Fw x, y;
+    dbl_late_ops<S>(t, grp, k, x, y);
+    const Fw r = w32::mont(t.f, x, y);
+    if (k == 2 || k == 3)
+      out(kOutZ, k - 2, r);
+    else
+      grp.st(S::kLeaf + k, r);
+  });
+  level(grp, 4, [&](int k) {                     // E
+    const int u = k % 2;
+    const Fw r = post_red(t, kara(t, grp, S::kLeaf + (k < 2 ? 4 : 7), u));
+    if (k < 2)
+      out(kOutX, u, r);
+    else
+      out(kOutY, u, dbl_y3(t, r, grp.ld(S::kLeaf + u)));
   });
 }
 

@@ -1,11 +1,12 @@
 """Hand-written Hopper kernels of the field core, with their plain versions.
 
 The port of ``groth_sahai_tpu/ops/pallas_fp.py``. Four kernels, written in
-CUDA C++ for ``sm_90a`` in ``csrc/fp_kernels.cu``: three over the in-thread
-field library ``csrc/field.cuh`` (the port of ``ops/pallas_reg.py``), and
-``pow_const`` over Fq on packed 32-bit words (``csrc/field_w32.cuh``), each
-Montgomery product of its chain split over a group of threads
-(``csrc/field_split_w32.cuh``; Fr's keeps the one-thread body):
+CUDA C++ for ``sm_90a`` in ``csrc/fp_kernels.cu``: ``mul_wide`` and
+``redc`` over the in-thread field library ``csrc/field.cuh`` (the port of
+``ops/pallas_reg.py``); ``mont_mul`` (Fq and Fr) and ``pow_const`` over
+Fq on packed 32-bit words (``csrc/field_w32.cuh``), each Montgomery
+product split over a group of threads (``csrc/field_split_w32.cuh``; Fr's
+``pow_const`` keeps the one-thread 16-bit body):
 
   ==========  =========================================  =======================
   wrapper     replaces (TPU kernel)                      computes
@@ -20,11 +21,13 @@ What bounds them on the H100: each launch reads its inputs and writes its
 output once, as int64 limbs (8 bytes per 16-bit limb, the port's tensor
 contract). At the pairing path's 8192-lane batches a launch moves a few MB
 and does ~1e7 32-bit multiply-adds, so `mont_mul`, `mul_wide` and `redc`
-(one thread per lane, limbs in registers) are bound by device-memory bytes
-and, below that, by launch overhead. `pow_const` (610 dependent Montgomery
-products per lane for a Fermat inverse) runs over 2 to 8192 lanes, too few
-to fill the card: one product's latency sets its time, which the split over
-a group of threads shortens.
+are bound by device-memory bytes and, below that, by launch overhead and
+at narrow calls by one product's latency: `mont_mul` splits each product
+over a group of threads, so that its widest calls spread over every SM and
+its narrow ones wait on a shorter chain. `pow_const` (610 dependent
+Montgomery products per lane for a Fermat inverse) runs over 2 to 8192
+lanes, too few to fill the card: one product's latency sets its time,
+which the split over a group of threads shortens.
 
 Dispatch rule: a CPU tensor runs the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. There is no fallback and no switch.
@@ -51,7 +54,8 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
 LIBRARY = KernelLibrary("gs_fp", "fp_kernels.cu",
-                        ["field.cuh", "field_w32.cuh", "field_split_w32.cuh"], {
+                        ["field.cuh", "field_w32.cuh", "field_split_w32.cuh",
+                         "group_w32.cuh"], {
     "gs_mont_mul": [_I, _P, _P, _P, _I64, _P, _U32, _P],
     "gs_mul_wide": [_I, _P, _P, _P, _I64, _P],
     "gs_redc": [_I, _P, _P, _I64, _P, _U32, _P],

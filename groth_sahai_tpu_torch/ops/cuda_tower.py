@@ -1,12 +1,13 @@
 """Hand-written Hopper kernels of the Fq12 tower, with their plain versions.
 
 The port of eight kernels of ``groth_sahai_tpu/ops/pallas_tower.py``, written
-in CUDA C++ for ``sm_90a`` in ``csrc/tower_kernels.cu``: ``cyc_sqr`` and the
-two Miller steps over the in-thread tower formulas ``csrc/tower.cuh`` (on
-``csrc/field.cuh``), and ``fq12_mul``, ``cyc_pow``, ``f12_pow_dyn``,
-``miller_iter_dbl`` and ``miller_iter_add`` over ``csrc/tower_w32.cuh``
-(packed 32-bit words, ``csrc/field_w32.cuh``, a group of threads per lane,
-``csrc/group_w32.cuh``):
+in CUDA C++ for ``sm_90a`` in ``csrc/tower_kernels.cu``: ``cyc_sqr`` and
+``miller_add_step`` over the in-thread tower formulas ``csrc/tower.cuh``
+(on ``csrc/field.cuh``), and ``fq12_mul``, ``cyc_pow``, ``f12_pow_dyn``,
+``miller_iter_dbl``, ``miller_iter_add`` and ``miller_dbl_step`` over
+``csrc/tower_w32.cuh`` (packed 32-bit words, ``csrc/field_w32.cuh``, a
+group of threads per lane, ``csrc/group_w32.cuh``; the doubling step on
+the doubling iteration's point levels):
 
   ===============  =================================  ========================
   wrapper          replaces (TPU kernel)              computes
@@ -38,11 +39,11 @@ per lane against 7.2 KB of int64 limbs moved, so every kernel here is
 bound by the multiplier; at the few thousand lanes of their calls (four
 for the verifier's final exponentiation), one thread per lane leaves most
 of the card idle and each thread's dependent chain sets the time.
-fq12_mul, cyc_pow, f12_pow_dyn and the two Miller iterations shorten that
-chain: each lane is worked by a group of threads (fq12_mul and f12_pow_dyn
-16, cyc_pow 32, the iterations 8), which take the independent products of
-each level of the formulas side by side, with the lane's values in shared
-memory.
+fq12_mul, cyc_pow, f12_pow_dyn, the two Miller iterations and the
+doubling step shorten that chain: each lane is worked by a group of
+threads (fq12_mul and f12_pow_dyn 16, cyc_pow 32, the iterations 8, the
+doubling step 4), which take the independent products of each level of
+the formulas side by side, with the lane's values in shared memory.
 
 Dispatch rule: a CPU tensor runs the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its launches in

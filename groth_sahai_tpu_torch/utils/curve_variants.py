@@ -340,6 +340,26 @@ def _events_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def _device_ms(fn, reps: int, key: str):
+    """Device time of one launch of the kernels whose name holds `key`, by
+    the profiler's CUPTI records over `reps` calls (a short kernel's
+    back-to-back launches by CUDA events time the host's launch rate);
+    None where it records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and key in e.key]
+    count = sum(e.count for e in rows)
+    return (sum(e.self_device_time_total for e in rows) / count / 1e3
+            if count else None)
+
+
 def card_line() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

@@ -24,6 +24,12 @@ against the plain versions. With
 (another checkout's `groth_sahai_tpu_torch/csrc`, with the same C entry
 points) is timed as one more variant. Inputs are seeded, at the kernels'
 input bounds. Prints the card's name and power limit.
+
+With `--step`, the doubling step's threads a lane (`kDblStepGroup`) are
+set to each of STEP_GROUPS instead, and miller_dbl_step over 4096 lanes
+(miller-steps-4096's) and miller_iter_dbl over 4096 (the kernel whose
+point levels the step shares) are timed, each by the profiler's device
+time a launch and CUDA events a call.
 """
 
 from __future__ import annotations
@@ -40,29 +46,83 @@ from ..ops import cuda_build
 from ..ops import cuda_tower as CT
 from ..ops.cuda_build import check, host_words
 from ..ops.fp import FQ, FR
-from .curve_variants import _bind, _events_ms, _limbs, build_variants, \
-    card_line, group_variants, ptxas_report, sass_report
+from .curve_variants import _bind, _device_ms, _events_ms, _limbs, \
+    build_variants, card_line, group_variants, ptxas_report, sass_report
 
 OUT = cuda_build.BUILD_DIR / "tower_variants"
 TOWER_SASS = (r"(fq12_mul|cyc_pow|miller_iter_dbl|miller_iter_add|"
-              r"f12_pow_dyn)_kernelILi(\d+)E", "{} at {} threads a lane")
+              r"f12_pow_dyn|miller_dbl_step)_kernelILi(\d+)E",
+              "{} at {} threads a lane")
 # ptxas lines: the five kernels, and the Montgomery product they call
 PTXAS = (r"fq12_mul_kernel|cyc_pow_kernel|miller_iter_dbl_kernel|"
-         r"miller_iter_add_kernel|f12_pow_dyn_kernel|mont")
+         r"miller_iter_add_kernel|f12_pow_dyn_kernel|"
+         r"miller_dbl_step_kernel|mont")
+STEP_GROUPS = (4, 8, 16)
+_STEP_CONST = re.compile(r"(constexpr int (kDblStepGroup) = )(\d+);")
 _CONST = re.compile(r"(constexpr int (kFq12MulGroup|kCycPowGroup|"
                     r"kDblGroup|kAddGroup|kPowDynGroup) = )(\d+);")
 
 
-def built_groups() -> dict:
+def built_groups(const=_CONST) -> dict:
     """The committed group sizes by constant name."""
     text = (cuda_build.CSRC / "tower_kernels.cu").read_text()
-    return {m.group(2): int(m.group(3)) for m in _CONST.finditer(text)}
+    return {m.group(2): int(m.group(3)) for m in const.finditer(text)}
 
 
 def variants() -> dict:
     """name -> {file: transform}: as built, then every G of GROUPS for all
     five kernels that is not the committed choice."""
     return group_variants("tower_kernels.cu", _CONST, built_groups())
+
+
+def step_variants() -> dict:
+    """As built, then the doubling step at each G of STEP_GROUPS."""
+    return group_variants("tower_kernels.cu", _STEP_CONST,
+                          built_groups(_STEP_CONST), STEP_GROUPS)
+
+
+def _dbl_case(gen, lanes, args, stream):
+    """miller_iter_dbl over `lanes` lanes: f < 2p, X, Z < 2p, Y < 10p, P < p."""
+    f = _limbs((12, lanes), 2, gen)
+    R = [_limbs((2, lanes), b, gen) for b in (2, 10, 2)]
+    P = [_limbs((lanes,), 1, gen) for _ in range(2)]
+
+    def dbl_call(lib, f=f, R=R, P=P, lanes=lanes):
+        fo = torch.empty_like(f)
+        rs = [torch.empty_like(R[0]) for _ in range(3)]
+        check(lib.gs_miller_iter_dbl(
+            FQ.n, *(x.data_ptr() for x in [f] + R + P + [fo] + rs), lanes,
+            *args, host_words(FQ, CT.TWO_INV_MONT), FQ.n0, stream),
+            "miller_iter_dbl", FQ.n)
+        return [fo] + rs
+
+    def dbl_plain(f=f, R=R, P=P):
+        fo, rs = CT.miller_iter_dbl_plain(f, tuple(R), *P)
+        return [fo] + list(rs)
+    return (f"miller_iter_dbl, {lanes} lanes", lanes, dbl_call, dbl_plain)
+
+
+def step_cases(gen):
+    """miller_dbl_step over 4096 lanes (X, Z < 2p, Y < 10p), then
+    miller_iter_dbl over 4096."""
+    args = (host_words(FQ, FQ.p), host_words(FQ, FQ.r_mod_p))
+    stream = torch.cuda.current_stream().cuda_stream
+    lanes = 4096
+    R = [_limbs((2, lanes), b, gen) for b in (2, 10, 2)]
+
+    def step_call(lib, R=R, lanes=lanes):
+        outs = [torch.empty_like(R[0]) for _ in range(6)]
+        check(lib.gs_miller_dbl_step(
+            FQ.n, *(x.data_ptr() for x in R + outs), lanes, *args,
+            host_words(FQ, CT.TWO_INV_MONT), FQ.n0, stream),
+            "miller_dbl_step", FQ.n)
+        return outs
+
+    def step_plain(R=R):
+        R3, line = CT.miller_dbl_step_plain(tuple(R), (FQ.p + 1) // 2)
+        return list(R3) + list(line)
+    return [(f"miller_dbl_step, {lanes} lanes", lanes, step_call,
+             step_plain), _dbl_case(gen, lanes, args, stream)]
 
 
 def cases(gen):
@@ -91,25 +151,7 @@ def cases(gen):
             return [o]
         out.append((f"cyc_pow, {lanes} lanes", lanes, pow_call,
                     lambda a=a: [CT.cyc_pow_plain(a, abs(C.X))]))
-    lanes = 4096
-    f = _limbs((12, lanes), 2, gen)
-    R = [_limbs((2, lanes), b, gen) for b in (2, 10, 2)]
-    P = [_limbs((lanes,), 1, gen) for _ in range(2)]
-
-    def dbl_call(lib, f=f, R=R, P=P, lanes=lanes):
-        fo = torch.empty_like(f)
-        rs = [torch.empty_like(R[0]) for _ in range(3)]
-        check(lib.gs_miller_iter_dbl(
-            FQ.n, *(x.data_ptr() for x in [f] + R + P + [fo] + rs), lanes,
-            *args, host_words(FQ, CT.TWO_INV_MONT), FQ.n0, stream),
-            "miller_iter_dbl", FQ.n)
-        return [fo] + rs
-
-    def dbl_plain(f=f, R=R, P=P):
-        fo, rs = CT.miller_iter_dbl_plain(f, tuple(R), *P)
-        return [fo] + list(rs)
-    out.append((f"miller_iter_dbl, {lanes} lanes", lanes, dbl_call,
-                dbl_plain))
+    out.append(_dbl_case(gen, 4096, args, stream))
     for lanes in (4096, 128, 32):
         f = _limbs((12, lanes), 2, gen)
         R = [_limbs((2, lanes), b, gen) for b in (2, 10, 2)]
@@ -149,6 +191,8 @@ def cases(gen):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--step", action="store_true",
+                    help="the doubling step's group sizes")
     ap.add_argument("--against", type=pathlib.Path, default=None,
                     help="another checkout's csrc/ to time beside these")
     opts = ap.parse_args()
@@ -157,8 +201,13 @@ def main() -> int:
         return 2
     card = card_line()
     print(card, flush=True)
-    print(f"as built: {built_groups()}", flush=True)
-    edits, sources = variants(), {}
+    if opts.step:
+        print(f"as built: {built_groups(_STEP_CONST)}", flush=True)
+        edits, make = step_variants(), step_cases
+    else:
+        print(f"as built: {built_groups()}", flush=True)
+        edits, make = variants(), cases
+    sources = {}
     if opts.against:
         edits["against"] = {}
         sources["against"] = opts.against.resolve()
@@ -169,7 +218,7 @@ def main() -> int:
     libs = {name: _bind(lib, CT.LIBRARY) for name, (lib, _) in built.items()}
     gen = torch.Generator("cuda").manual_seed(20261018)
     order = list(libs) + ["as built"]
-    for what, lanes, fn, plain in cases(gen):
+    for what, lanes, fn, plain in make(gen):
         want = fn(libs["as built"])
         exact = all(torch.equal(a, b) for a, b in zip(want, plain()))
         print(f"[plain] {what}: as built "
@@ -183,7 +232,14 @@ def main() -> int:
             same = all(torch.equal(a, b) for a, b in zip(fn(libs[name]),
                                                          want))
             ms = _events_ms(lambda: fn(libs[name]), reps)
-            print(f"[time] {what}: {name}: {ms:.4f} ms a launch, outputs "
+            timed = f"{ms:.4f} ms a launch"
+            if opts.step:
+                dev = _device_ms(lambda: fn(libs[name]), reps,
+                                 what.split(",")[0])
+                timed = (f"device {dev:.4f} ms a launch" if dev is not None
+                         else "device not recorded") + \
+                    f" (events {ms:.4f} ms a call)"
+            print(f"[time] {what}: {name}: {timed}, outputs "
                   f"{'equal' if same else 'DIFFERENT'}", flush=True)
             if not same:
                 return 1

@@ -10,8 +10,9 @@ twin of that schedule -- the same levels, tasks, slots and k p offsets,
 each Montgomery product through the twin of the packed-word product in
 test_torch_words.py -- and holds it limb for limb against the plain
 versions `cuda_tower.cyc_pow_plain`, `f12_pow_dyn_plain`,
-`miller_iter_dbl_plain` and `miller_iter_add_plain` (themselves held
-against the JAX package in
+`miller_iter_dbl_plain`, `miller_iter_add_plain` and
+`miller_dbl_step_plain` (the doubling step, on the doubling iteration's
+point levels and helpers; themselves held against the JAX package in
 test_torch_cuda_tower.py and test_torch_cuda_miller.py), on seeded inputs
 and on the edges chip_smoke.py uses. The twin asserts the bound audit at
 every step (Montgomery operands < 2^400 with value(a) value(b) <= 2^16 p^2,
@@ -322,46 +323,70 @@ def f12_pow_dyn_twin(a, s: int):
 SF, SLEAF, ST6, SPT, SD2, SD3, SSLOTS = 0, 12, 81, 99, 107, 117, 133
 
 
-def dbl_e(ln, u):
-    c0, c1 = ln.ld(SD2 + 4), ln.ld(SD2 + 5)
+class DblSlots:
+    """The doubling iteration's point slots (tower_w32.cuh DblSlots)."""
+    PT, D2, D3 = SPT, SD2, SD3
+
+
+class DblStepSlots:
+    """The doubling step's slots (tower_w32.cuh DblStepSlots)."""
+    PT, D2, D3, LEAF, SLOTS = 0, 6, 16, 26, 41
+
+
+def dbl_e(ln, u, S=DblSlots):
+    c0, c1 = ln.ld(S.D2 + 4), ln.ld(S.D2 + 5)
     return mul12(subk(c0, c1, 2) if u == 0 else add(c0, c1))
 
 
-def dbl_h(ln, u):
-    return subk(ln.ld(SD2 + 8 + u), add(ln.ld(SD2 + 2 + u),
-                                         ln.ld(SD2 + 4 + u)), 4)
+def dbl_h(ln, u, S=DblSlots):
+    return subk(ln.ld(S.D2 + 8 + u), add(ln.ld(S.D2 + 2 + u),
+                                          ln.ld(S.D2 + 4 + u)), 4)
 
 
-def dbl_leaf_ops(ln, d):
+def dbl_l0(ln, u, S=DblSlots):
+    return subk(dbl_e(ln, u, S), ln.ld(S.D2 + 2 + u), 2)
+
+
+def dbl_l1(ln, u, S=DblSlots):
+    return triple(ln.ld(S.D2 + 6 + u))
+
+
+def dbl_l2(ln, u, S=DblSlots):
+    return negk(dbl_h(ln, u, S), 8)
+
+
+def dbl_y3(g2, e2):
+    return subk(g2, triple(e2), 8)
+
+
+def dbl_leaf_ops(ln, d, S=DblSlots):
     n = d // 3
     oa, ob = [0, 1, 2, 0, 3][n], [1, 1, 2, 0, 3][n]
 
     def comp(o, u):
         if o < 3:
-            return ln.ld(SPT + 2 * o + u)
-        return add(ln.ld(SPT + 2 + u), ln.ld(SPT + 4 + u))
+            return ln.ld(S.PT + 2 * o + u)
+        return add(ln.ld(S.PT + 2 + u), ln.ld(S.PT + 4 + u))
     return kara_ops(d % 3, lambda u: comp(oa, u), lambda u: comp(ob, u))
 
 
-def dbl_mid_ops(ln, d, tinv):
-    """Operands of level-C task d, or None once d (l0) stored itself."""
+def dbl_mid_ops(ln, d, tinv, S=DblSlots):
+    """Operands of level-C task d < 14 (d >= 10: the iteration's line
+    scaling, P at DblSlots' PT + 6, + 7)."""
     u = d % 2
     if d < 2:
-        return ln.ld(SD2 + u), tinv
+        return ln.ld(S.D2 + u), tinv
     if d < 4:
-        return add(ln.ld(SD2 + 2 + u), triple(dbl_e(ln, u))), tinv
+        return add(ln.ld(S.D2 + 2 + u), triple(dbl_e(ln, u, S))), tinv
     if d < 7:
-        e = lambda uu: dbl_e(ln, uu)
+        e = lambda uu: dbl_e(ln, uu, S)
         return kara_ops(d - 4, e, e)
     if d < 10:
-        return kara_ops(d - 7, lambda uu: ln.ld(SD2 + 2 + uu),
-                        lambda uu: dbl_h(ln, uu))
+        return kara_ops(d - 7, lambda uu: ln.ld(S.D2 + 2 + uu),
+                        lambda uu: dbl_h(ln, uu, S))
     if d < 12:
-        return triple(ln.ld(SD2 + 6 + u)), ln.ld(SPT + 6)
-    if d < 14:
-        return negk(dbl_h(ln, u), 8), ln.ld(SPT + 7)
-    ln.st(SD3 + d, subk(dbl_e(ln, u), ln.ld(SD2 + 2 + u), 2))
-    return None
+        return dbl_l1(ln, u, S), ln.ld(S.PT + 6)
+    return dbl_l2(ln, u, S), ln.ld(S.PT + 7)
 
 
 def sparse_leaf_ops(ln, F, la, LB, LC, k):
@@ -389,14 +414,14 @@ def sparse_leaf_ops(ln, F, la, LB, LC, k):
     return kara_ops(k % 3, left, right)
 
 
-def dbl_late_ops(ln, d):
+def dbl_late_ops(ln, d, S=DblSlots):
     if d < 4:
-        return kara(ln, SD3 + (4 if d < 2 else 7), d % 2), ONE
+        return kara(ln, S.D3 + (4 if d < 2 else 7), d % 2), ONE
     if d < 7:
-        return kara_ops(d - 4, lambda u: ln.ld(SD3 + u),
-                        lambda u: subk(ln.ld(SD2 + 2 + u),
-                                       triple(dbl_e(ln, u)), 144))
-    g = lambda u: ln.ld(SD3 + 2 + u)
+        return kara_ops(d - 4, lambda u: ln.ld(S.D3 + u),
+                        lambda u: subk(ln.ld(S.D2 + 2 + u),
+                                       triple(dbl_e(ln, u, S)), 144))
+    g = lambda u: ln.ld(S.D3 + 2 + u)
     return kara_ops(d - 7, g, g)
 
 
@@ -444,10 +469,10 @@ def miller_dbl_twin(f, X, Y, Z, px, py):
     def level_c(k):
         if k < 12:
             ln.st(SF + k, ln.post_red(f12_comb(ln, ST6, k, 24, 42)))
-            return
-        ops = dbl_mid_ops(ln, k - 12, tinv)
-        if ops is not None:
-            ln.st(SD3 + k - 12, ln.mont(*ops))
+        elif k < 26:
+            ln.st(SD3 + k - 12, ln.mont(*dbl_mid_ops(ln, k - 12, tinv)))
+        else:                            # l0, no product
+            ln.st(SD3 + k - 12, dbl_l0(ln, k - 26))
 
     def level_d(k):
         r = ln.mont(*(sparse_leaf_ops(ln, SF, lambda u: ln.ld(SD3 + 14 + u),
@@ -473,12 +498,60 @@ def miller_dbl_twin(f, X, Y, Z, px, py):
             out["f"][k] = ln.post_red(f12_comb(ln, ST6, k, 12, 18))
         else:
             u = k - 12
-            out["Y"][u] = subk(ln.ld(SD2 + u), triple(ln.ld(SLEAF + 45 + u)),
-                               8)
+            out["Y"][u] = dbl_y3(ln.ld(SD2 + u), ln.ld(SLEAF + 45 + u))
     for n, task in ((69, level_a), (19, level_b), (28, level_c), (55, level_d),
                     (13, level_e), (14, level_f)):
         ln.level(n, task)
     return (out["f"], out["X"], out["Y"], out["Z"]), ln
+
+
+def miller_dbl_step_twin(X, Y, Z, lane=Lane):
+    """miller_dbl_step_kernel for one lane (ints: X, Y, Z 2 each): the
+    iteration's point levels on DblStepSlots, in five levels; returns
+    ((X3, Y3, Z3), (l0, l1, l2)) and the lane."""
+    S = DblStepSlots
+    ln = lane(S.SLOTS)
+    ins = X + Y + Z
+    ln.level(6, lambda k: ln.st(S.PT + k, ins[k]))
+    tinv = CT.TWO_INV_MONT
+    out = {k: [None] * 2 for k in ("X", "Y", "Z", "l0", "l1", "l2")}
+
+    def level_a(k):
+        ln.st(S.LEAF + k, ln.mont(*dbl_leaf_ops(ln, k, S)))
+
+    def level_b(k):
+        ln.st(S.D2 + k, ln.post_red(kara(ln, S.LEAF + 3 * (k // 2), k % 2)))
+
+    def level_c(k):
+        u = k % 2
+        if k < 10:
+            ln.st(S.D3 + k, ln.mont(*dbl_mid_ops(ln, k, tinv, S)))
+        elif k < 12:
+            out["l0"][u] = dbl_l0(ln, u, S)
+        elif k < 14:
+            out["l1"][u] = dbl_l1(ln, u, S)
+        else:
+            out["l2"][u] = dbl_l2(ln, u, S)
+
+    def level_d(k):
+        r = ln.mont(*dbl_late_ops(ln, k, S))
+        if k in (2, 3):
+            out["Z"][k - 2] = r
+        else:
+            ln.st(S.LEAF + k, r)
+
+    def level_e(k):
+        u = k % 2
+        r = ln.post_red(kara(ln, S.LEAF + (4 if k < 2 else 7), u))
+        if k < 2:
+            out["X"][u] = r
+        else:
+            out["Y"][u] = dbl_y3(r, ln.ld(S.LEAF + u))
+    for n, task in ((15, level_a), (10, level_b), (16, level_c),
+                    (10, level_d), (4, level_e)):
+        ln.level(n, task)
+    return (tuple(out[k] for k in ("X", "Y", "Z")),
+            tuple(out[k] for k in ("l0", "l1", "l2"))), ln
 
 
 # ------------------------------------------------- the addition iteration
@@ -713,6 +786,43 @@ def test_group_miller_iter_dbl_matches_plain():
         assert ln.rounds[8] == 25
 
 
+@pytest.mark.parametrize("lanes", [4096, 8])
+def test_group_miller_dbl_step_matches_plain(lanes):
+    """miller_dbl_step_kernel's five levels against miller_dbl_step_plain,
+    limb for limb: X, Z < 2p, Y < 10p on seeded lanes, lane 0 at the top
+    of every bound (Y = 10p - 1), lane 1 with R zero, lane 2 X = Z = 2p -
+    1, Y = 0. 4096 lanes with each product from its closed form
+    (FastLane), 8 through the packed-word product's instruction twin; 49
+    products in 9 rounds at G = 8 (14 at 4, 5 at 16), no slot shared
+    within a level, every bound of the audit held."""
+    fq2 = lambda seed, bound, edges: with_edges(
+        rand_coeffs(seed, 2, lanes, bound=bound), edges)
+    X, Y, Z = (fq2(60, 2 * P, [2 * P - 1, 0, 2 * P - 1]),
+               fq2(61, 10 * P, [10 * P - 1, 0, 0]),
+               fq2(62, 2 * P, [2 * P - 1, 0, 2 * P - 1]))
+    t = lambda x: limbs_from_numpy(x, device="cpu")
+    wR, wl = CT.miller_dbl_step_plain((t(X), t(Y), t(Z)), (P + 1) // 2)
+    want = [w.numpy() for w in wR + wl]
+    vX, vY, vZ = (ints(x) for x in (X, Y, Z))
+    lane_kind = FastLane if lanes > 8 else Lane
+    got = np.zeros((6, FQ.n, 2, lanes), dtype=np.int64)
+    for lane in range(lanes):
+        (R3, line), ln = miller_dbl_step_twin(
+            *([int(v[u, lane]) for u in range(2)] for v in (vX, vY, vZ)),
+            lane=lane_kind)
+        for i, comps in enumerate(R3 + line):
+            for u in range(2):
+                got[i, :, u, lane] = limbs(comps[u])
+        assert ln.products == 49
+        assert (ln.rounds[4], ln.rounds[8], ln.rounds[16]) == (14, 9, 5)
+    for i in range(6):
+        assert np.array_equal(got[i], want[i]), ("X3", "Y3", "Z3", "l0",
+                                                 "l1", "l2")[i]
+    bounds = (2, 10, 2, 50, 6, 8)          # units of p
+    for i, b in enumerate(bounds):
+        assert all(int(v) < b * P for v in ints(want[i]).ravel())
+
+
 def miller_lanes(lanes, seed):
     """chip_smoke.py's Miller inputs as numpy limbs: f < 2p; X, Z < 2p, Y <
     10p; Q, P < p; lane 0 at the top of every bound, lane 1 with R, Q and P
@@ -759,12 +869,14 @@ def test_group_miller_iter_add_matches_plain():
 
 
 def test_tower_variants_imports_neither_jax_nor_the_jax_package():
-    """The group-size variants script runs on the card, without JAX."""
+    """The group-size variants script runs on the card, without JAX (with
+    --step: the doubling step at the two other G of 4, 8, 16)."""
     repo = pathlib.Path(__file__).resolve().parent.parent
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "import groth_sahai_tpu_torch.utils.tower_variants as tv\n"
             "assert set(tv.variants()) >= {'as built', 'G=4', 'G=16'}\n"
+            "assert len(tv.step_variants()) == 3\n"
             "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
             "       and (m == 'groth_sahai_tpu' or m.startswith(\n"
             "            ('groth_sahai_tpu.', 'jax.')) or m == 'jax')]\n"

@@ -52,6 +52,11 @@ def n0w_newton(p0: int) -> int:
     return (-x) & MASK
 
 
+def clear(x) -> bool:
+    """x == 0, for an int or every lane of a numpy uint64 array."""
+    return x == 0 if isinstance(x, int) else not np.any(x)
+
+
 class Chain:
     """The PTX carry flag and the instructions of field_w32.cuh that use it.
     An instruction without .cc drops its carry out, which must be 0."""
@@ -65,7 +70,7 @@ class Chain:
 
     @staticmethod
     def _last(s):
-        assert s >> 32 == 0, "a chain dropped a carry"
+        assert clear(s >> 32), "a chain dropped a carry"
         return s
 
     def add_cc(self, a, b):
@@ -91,10 +96,13 @@ class Chain:
 
 
 def mont_w32(a, b, p, n0w: int, n0: int):
-    """field_w32.cuh mont: a b 2^-400 mod p (< 2p) on packed words, step
-    for step: T = E + 2^32 O, b's even words into E's word pairs and its
-    odd words into O's, m p by the same split, then E = E / 2^32 + O; the
-    last step reduces by 2^16."""
+    """field_w32.cuh mont_words: a b R^-1 mod p (< 2p) on NW packed words
+    (NW = len(a): Fq 13, R = 2^400; Fr 9, R = 2^272; p in NW - 1 words),
+    step for step: T = E + 2^32 O, b's even words into E's word pairs and
+    its odd words into O's, m p by the same split, then E = E / 2^32 + O;
+    the last step reduces by 2^16. A word may be an int or a numpy uint64
+    array of lanes."""
+    NW, NPW = len(a), len(p)
     cc = Chain()
     E, O = [0] * (NW + 1), [0] * NW
     for i in range(NW):
@@ -128,14 +136,14 @@ def mont_w32(a, b, p, n0w: int, n0: int):
             O[j] = cc.madc_hi_cc(m, p[j], O[j])
         O[NPW] = cc.addc(O[NPW], 0)
         if i < NW - 1:                         # T / 2^32
-            assert E[0] == 0
+            assert clear(E[0])
             E[0] = cc.add_cc(E[1], O[0])
             for k in range(1, NW - 1):
                 E[k] = cc.addc_cc(E[k + 1], O[k])
             E[NW - 1] = cc.addc(E[NW], O[NW - 1])
             E[NW] = 0
         else:
-            assert E[0] & 0xFFFF == 0
+            assert clear(E[0] & 0xFFFF)
     t = [E[0], cc.add_cc(E[1], O[0])]          # T's words, then T / 2^16
     t += [cc.addc_cc(E[k], O[k - 1]) for k in range(2, NW)]
     t.append(cc.addc(E[NW], O[NW - 1]))
