@@ -10,10 +10,11 @@ Phases (any failure exits non-zero and prints no result line):
                 build time, the compiler's resource report, the card's
                 name and power limit, and from cuobjdump the instructions of
                 the packed-word kernels (cadd, cmsm_row_scan, cdbl_n_add,
-                cmadd, fq12_mul, cyc_pow, f12_pow_dyn, miller_iter_dbl,
-                miller_iter_add, miller_dbl_step, pow_const, mont_mul over
-                Fq and Fr) and of their Montgomery product, with the
-                grouped kernels' frames, spills and registers;
+                cmadd, fq12_mul, cyc_pow, cyc_sqr, f12_pow_dyn,
+                miller_iter_dbl, miller_iter_add, miller_dbl_step,
+                miller_add_step, pow_const, mont_mul over Fq and Fr) and
+                of their Montgomery product, with the grouped kernels'
+                frames, spills and registers;
   2. kernels -- each of the sixteen kernels against its plain PyTorch version on
                 the card, bit-exact, at the paths' main shapes: the field
                 kernels at Fq width over the pairing's stacks (16384,
@@ -37,7 +38,9 @@ Phases (any failure exits non-zero and prints no result line):
                 verify-ppe-334's 668 MSMs, G1 at msm-g1-65536's, G2 at
                 prove-ppe-334's) and at ragged widths of 1000 and 4 lanes;
                 miller_dbl_step and miller_add_step over 4096 lanes, and
-                their R against the Miller iterations' on the same inputs.
+                their R against the Miller iterations' on the same inputs;
+                cyc_sqr and the two steps also over the ragged 1, 3, 1000
+                and 4099 lanes.
                 Seeded random inputs plus edge lanes at the
                 top of each kernel's input bound (0, 1, p-1, 2p-1,
                 value(a)*value(b) = 2^16 p^2, wide t = p R - 1; Fq12
@@ -761,6 +764,8 @@ def phase2_shapes():
         e = 6 if name == "cmsm_row_scan" else None
         shapes += [(name, c, m, e) for c in (G1, G2) for m in (1000, 4)]
     shapes += [(name, FQ, STEP_LANES, None) for name in STEPS]
+    shapes += [(name, FQ, m, None) for name in ("cyc_sqr",) + STEPS
+               for m in RAGGED + (STEP_LANES + 3,)]
     return shapes
 
 

@@ -83,8 +83,8 @@ __device__ __forceinline__ Val<2> vb3(const FieldW& f, const Val<2>& a,
 }
 
 // Field products: Fq a Montgomery product (< 2p); Fq2 the Karatsuba of
-// tower.cuh's f2_mulred (t0 - t1 + 2p, t2 - t0 - t1 + 4p), each component
-// then times R mod p (< 2p).
+// the reference's _f2_mulred (t0 - t1 + 2p, t2 - t0 - t1 + 4p), each
+// component then times R mod p (< 2p).
 __device__ __forceinline__ Val<1> vmul(const FieldW& f, const Val<1>& a,
                                        const Val<1>& b) {
   return Val<1>{{mont(f, a.c[0], b.c[0])}};

@@ -1,7 +1,6 @@
 // A group of G threads working one lane, over packed 32-bit words
-// (field_w32.cuh): the machinery the grouped tower kernels (tower_w32.cuh:
-// cyc_pow, miller_iter_dbl, fq12_mul) and the grouped curve kernel
-// (curve_group_w32.cuh: cdbl_n_add) share.
+// (field_w32.cuh): the machinery the tower kernels (tower_w32.cuh) and the
+// grouped curve kernels (curve_group_w32.cuh: cdbl_n_add, cmadd) share.
 //
 // One lane is worked by the G threads of a Group, inside one warp. The
 // lane's values live in the group's shared memory as Fq slots of 13 words.

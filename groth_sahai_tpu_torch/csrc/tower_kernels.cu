@@ -21,22 +21,20 @@
 //
 // Work split: an Fq12 batch is int64 [25, 12, M] (limb i of coefficient c
 // of lane l at (12 i + c) M + l), an Fq2 batch [25, 2, M], an Fq batch
-// [25, M], Fr scalars [17, M]. Two kernels (cyc_sqr and the addition step)
-// run one thread per lane, as in fp_kernels.cu, in blocks of 32 threads
-// that spread the few thousand lanes of these calls over all 132 SMs.
+// [25, M], Fr scalars [17, M].
 //
 // What bounds them on the H100: an Fq12 product is 66 Montgomery products
 // (54 Karatsuba + 12 post-reductions) per lane on 7.2 KB of int64 limbs
-// moved, so every kernel here is bound by the multiplier: a doubling
-// iteration is 176 Montgomery products per lane, an addition iteration
-// 126, a cyclotomic square 30, f12_pow_dyn up to 272 x 132. The one-thread
-// kernels keep each Fq12 value in thread-local memory (tower.cuh, 16-bit
-// limbs, out-of-line products with arrays by reference), so at these small
-// batches the real limit is the latency of one thread's long chain of
-// products, each about 5.5 us.
+// moved, so the kernels are bound by the multiplier: a doubling iteration
+// is 176 Montgomery products per lane, an addition iteration 126, the
+// doubling and addition steps 49 and 65, f12_pow_dyn up to 272 x 132. Only
+// the cyclotomic square, 30 products on 4.8 KB moved, is bound by bytes
+// (19.7 MB at 4096 lanes: 5.9 us at 3.35 TB/s, against 4.8 us of
+// multiply-adds). At the few thousand lanes of these calls neither rate is
+// the real limit: a lane's chain of dependent Montgomery products is, and
+// one thread a lane made each product in series, ~2 us apiece.
 //
-// fq12_mul, cyc_pow, f12_pow_dyn, miller_iter_dbl, miller_iter_add and
-// miller_dbl_step are designed for that limit (tower_w32.cuh over
+// Every kernel here is designed for that limit (tower_w32.cuh over
 // group_w32.cuh):
 //   * an Fq value is 13 packed 32-bit words at the same R = 2^400, and
 //     every product is field_w32.cuh's out-of-line `mont` with its
@@ -47,17 +45,19 @@
 //     round-robin to the group's threads, levels separated by __syncwarp
 //     of the group, so a lane's chain of products shrinks from 2,316
 //     (cyc_pow, e = |x|), 176 (a doubling iteration), 126 (an addition
-//     iteration) and 49 (a doubling step) to the levels' rounds of
-//     products: a cyclotomic square 2 and an Fq12 product 3 at cyc_pow's
-//     G = 32 (146 for e = |x|), a doubling iteration 25 and an addition
-//     iteration 17 at G = 8, a doubling step 14 at G = 4, an Fq12
-//     product 5 at fq12_mul's G = 16; f12_pow_dyn's 272 squares and its
-//     products on set bits are Fq12 products of 5 rounds each at its
-//     G = 16 (about 2,000 rounds for a random 255-bit scalar where one
-//     thread made 26,900 products). Every thread of a group takes the same
-//     scalar bit, so no group diverges. cyc_pow and f12_pow_dyn run one
-//     square-and-multiply loop (pow_body), each with its exponent's bits
-//     and its square (cyclotomic, or the generic product with B = A).
+//     iteration), 65 and 49 (the addition and doubling steps) and 30 (a
+//     cyclotomic square) to the levels' rounds of products: a cyclotomic
+//     square 2 and an Fq12 product 3 at cyc_pow's G = 32 (146 for
+//     e = |x|), a doubling iteration 25 and an addition iteration 17 at
+//     G = 8, a doubling step 14 at G = 4, an addition step 11 at G = 8, a
+//     cyclotomic square 8 at cyc_sqr's G = 4, an Fq12 product 5 at
+//     fq12_mul's G = 16; f12_pow_dyn's 272 squares and its products on set
+//     bits are Fq12 products of 5 rounds each at its G = 16 (about 2,000
+//     rounds for a random 255-bit scalar where one thread made 26,900
+//     products). Every thread of a group takes the same scalar bit, so no
+//     group diverges. cyc_pow and f12_pow_dyn run one square-and-multiply
+//     loop (pow_body), each with its exponent's bits and its square
+//     (cyclotomic, or the generic product with B = A).
 //     G is the fastest of 4, 8, 16 and 32 for each kernel on the paths'
 //     shapes (utils/tower_variants.py): the verifier's cyc_pow runs over 4
 //     lanes, where nothing else is on the card and only a shorter chain
@@ -74,12 +74,18 @@
 //     step's kDblStepGroup = 4 is the fastest of 4, 8 and 16 over
 //     miller-steps-4096's 4096 lanes (utils/tower_variants.py --step: 2 %
 //     ahead of G = 8, 17 % of G = 16; with 4 threads a lane its 4096 lanes
-//     are 512 blocks of 32 threads, about four a SM);
+//     are 512 blocks of 32 threads, about four a SM); the addition step's
+//     kAddStepGroup = 8 is the fastest of 4, 8 and 16 by the same --step
+//     (5 % ahead of G = 4, 34 % of G = 16), and cyc_sqr's kCycSqrGroup = 4
+//     of 4, 8, 16 and 32 (3 % ahead of G = 8, 27 % of G = 16, 85 % of
+//     G = 32): its time followed the warp-rounds of products a launch
+//     issues (512 warps x 8 rounds at G = 4, 2,048 x 3 at G = 16, 4,096 x
+//     2 at G = 32), and G = 16 kept 8 B on a stack frame;
 //   * the lane's values (its Fq12 values, R, the leaves and Karatsuba
 //     values of each level) live in the group's shared memory, 13 words
 //     an Fq slot: 108 slots for fq12_mul, cyc_pow and f12_pow_dyn, 133
-//     for the doubling iteration, 118 for the addition iteration, 41 for
-//     the doubling step; blocks
+//     for the doubling iteration, 118 for the addition iteration, 41 and
+//     40 for the doubling and addition steps, 42 for cyc_sqr; blocks
 //     of kGroupLanes lanes (55 KB of shared memory a block for the
 //     doubling iteration: four blocks an SM hold verify's 4096 lanes in
 //     one wave). Inactive lanes of a ragged block leave as whole groups.
@@ -90,19 +96,14 @@
 
 #include <cstdint>
 
-#include "field.cuh"
 #include "field_w32.cuh"
-#include "tower.cuh"
 #include "tower_w32.cuh"
 
 namespace {
 
-using namespace gs::tower;
-
-constexpr int kThreads = 32;
-
 using gs::tw::TowerW;
 using gs::w32::Fw;
+using gs::w32::kLimbs;
 using gs::w32::lane_words;
 using gs::w32::load_coef;
 using gs::w32::store_coef;
@@ -110,41 +111,24 @@ using gs::w32::store_coef;
 // The grouped kernels: threads a lane, and lanes a block.
 constexpr int kFq12MulGroup = 16;
 constexpr int kCycPowGroup = 32;
+constexpr int kCycSqrGroup = 4;
 constexpr int kDblGroup = 8;
 constexpr int kAddGroup = 8;
 constexpr int kPowDynGroup = 16;
 constexpr int kDblStepGroup = 4;
+constexpr int kAddStepGroup = 8;
 constexpr int kGroupLanes = 8;
 
 // cyc_pow's and f12_pow_dyn's slots: a, two accumulators, the leaves, the
 // Fq6 values;
-// fq12_mul's: a, b, the product, the leaves, the Fq6 values.
+// fq12_mul's: a, b, the product, the leaves, the Fq6 values;
+// cyc_sqr's: a, the square, the nine Fq2 squares.
 constexpr int kCycPowSlots = 12 + 12 + 12 + 54 + 18;
 constexpr int kFq12MulSlots = 12 + 12 + 12 + 54 + 18;
+constexpr int kCycSqrSlots = 12 + 12 + 18;
 // pow_body's slots in that layout
 constexpr int kPowX = 0, kPowAcc = 12, kPowTmp = 24, kPowLeaf = 36,
               kPowT6 = 90;
-
-__device__ __forceinline__ void load12(const int64_t* src, int64_t m,
-                                       int64_t lane, Fp12& x) {
-  uint32_t* w = &x[0][0][0][0];
-#pragma unroll 1
-  for (int c = 0; c < 12; ++c) {
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      w[c * N + i] = static_cast<uint32_t>(src[(i * 12 + c) * m + lane]);
-  }
-}
-
-__device__ __forceinline__ void store12(int64_t* dst, int64_t m, int64_t lane,
-                                        const Fp12& x) {
-  const uint32_t* w = &x[0][0][0][0];
-#pragma unroll 1
-  for (int c = 0; c < 12; ++c) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) dst[(i * 12 + c) * m + lane] = w[c * N + i];
-  }
-}
 
 // a b post-reduced (tower_w32.cuh f12_mul: 54 Karatsuba leaves, nine Fq6
 // values, 12 post-reduced coefficients), bound(a) bound(b) <= 1024 p^2. A
@@ -242,41 +226,28 @@ cyc_pow_kernel(const __grid_constant__ TowerW t, const int64_t* a,
   pow_body<G>(t, a, CycExp{e}, out, m);
 }
 
-__device__ __forceinline__ void load2(const int64_t* src, int64_t m,
-                                      int64_t lane, Fp2& x) {
-#pragma unroll 1
-  for (int u = 0; u < 2; ++u) {
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      x[u][i] = static_cast<uint32_t>(src[(i * 2 + u) * m + lane]);
-  }
-}
-
-__device__ __forceinline__ void store2(int64_t* dst, int64_t m, int64_t lane,
-                                       const Fp2& x) {
-#pragma unroll 1
-  for (int u = 0; u < 2; ++u) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) dst[(i * 2 + u) * m + lane] = x[u][i];
-  }
-}
-
-__device__ __forceinline__ void load1(const int64_t* src, int64_t m,
-                                      int64_t lane, Fp& x) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) x[i] = static_cast<uint32_t>(src[i * m + lane]);
-}
-
-// One Granger-Scott cyclotomic square, post-reduced to < 2p; inputs < 2p.
-__global__ void __launch_bounds__(kThreads)
-cyc_sqr_kernel(const __grid_constant__ FieldQ f, const int64_t* a,
+// One Granger-Scott cyclotomic square (_cyc_sqr_kernel), post-reduced to
+// < 2p; inputs < 2p. A group of G threads works a lane, in the two levels
+// of tower_w32.cuh cyc_sqr (cyc_pow's square): 18 products, then 12. Each
+// coefficient is read once and written once, a lane's 25 limbs of it by
+// one thread.
+template <int G>
+__global__ void __launch_bounds__(kGroupLanes * G)
+cyc_sqr_kernel(const __grid_constant__ TowerW t, const int64_t* a,
                int64_t* out, int64_t m) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  extern __shared__ uint32_t smem[];
+  const int rank = threadIdx.x / G;
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kGroupLanes + rank;
   if (lane >= m) return;
-  Fp12 x, z;
-  load12(a, m, lane, x);
-  cyc_sqr_red(f, x, z);
-  store12(out, m, lane, z);
+  const auto grp = gs::tw::group_of<G>(smem + rank * lane_words(kCycSqrSlots));
+  constexpr int A = 0, OUT = 12, SQ = 24;
+  gs::tw::level(grp, 12, [&](int c) {
+    grp.st(A + c, load_coef(a, 12, c, m, lane));
+  });
+  gs::tw::cyc_sqr(t, grp, A, OUT, SQ);
+  gs::tw::level(grp, 12, [&](int c) {
+    store_coef(out, 12, c, m, lane, grp.ld(OUT + c));
+  });
 }
 
 // One Miller doubling iteration (_miller_iter_dbl_kernel): f <- f^2 *
@@ -353,6 +324,20 @@ miller_iter_add_kernel(const __grid_constant__ TowerW t, const int64_t* fin,
   });
 }
 
+// A Miller step's out(kind, c, v): component c of X3, Y3, Z3, l0, l1, l2
+// to the lane's six Fq2 outputs.
+struct StepOut {
+  int64_t *x, *y, *z, *l0, *l1, *l2;
+  int64_t m, lane;
+  __device__ __forceinline__ void operator()(gs::tw::DblOut kind, int c,
+                                             const Fw& v) const {
+    using namespace gs::tw;
+    store_coef(kind == kOutX ? x : kind == kOutY ? y : kind == kOutZ ? z
+               : kind == kOutL0 ? l0 : kind == kOutL1 ? l1 : l2,
+               2, c, m, lane, v);
+  }
+};
+
 // The Miller doubling step alone (_miller_dbl_kernel): R <- 2R and the
 // line (l0, l1, l2) = (i, 3j, -h), not yet scaled by P. R = (X, Y, Z) with
 // X, Z < 2p, Y < 10p; outputs X3, Z3 < 2p, Y3 < 10p, l0 < 50p, l1 < 6p,
@@ -375,39 +360,37 @@ miller_dbl_step_kernel(const __grid_constant__ TowerW t, const int64_t* xin,
     const int64_t* c = k < 2 ? xin : k < 4 ? yin : zin;
     grp.st(S::kPt + k, load_coef(c, 2, k % 2, m, lane));
   });
-  gs::tw::miller_dbl_step(t, grp, [&](gs::tw::DblOut kind, int c,
-                                      const Fw& v) {
-    using namespace gs::tw;
-    store_coef(kind == kOutX ? xout : kind == kOutY ? yout
-               : kind == kOutZ ? zout : kind == kOutL0 ? l0out
-               : kind == kOutL1 ? l1out : l2out, 2, c, m, lane, v);
-  });
+  gs::tw::miller_dbl_step(
+      t, grp, StepOut{xout, yout, zout, l0out, l1out, l2out, m, lane});
 }
 
 // The Miller addition step alone (_miller_add_kernel): R <- R + Q with Q
-// = (xq, yq) affine, and the line (j, -theta, lambda); Y < 10p.
-__global__ void __launch_bounds__(kThreads)
-miller_add_step_kernel(const __grid_constant__ FieldQ f, const int64_t* xin,
+// = (xq, yq) affine, and the line (l0, l1, l2) = (j, -theta, lambda), not
+// yet scaled by P. X, Z < 2p, Y < 10p, Q < p; outputs X3, Z3 < 2p,
+// Y3 < 4p, l0 < 4p, l1 < 16p, l2 < 4p. A group of G threads works a lane,
+// in the levels of tower_w32.cuh miller_add_step (the addition
+// iteration's point levels).
+template <int G>
+__global__ void __launch_bounds__(kGroupLanes * G)
+miller_add_step_kernel(const __grid_constant__ TowerW t, const int64_t* xin,
                        const int64_t* yin, const int64_t* zin,
                        const int64_t* xqin, const int64_t* yqin,
                        int64_t* xout, int64_t* yout, int64_t* zout,
                        int64_t* l0out, int64_t* l1out, int64_t* l2out,
                        int64_t m) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  using S = gs::tw::AddStepSlots;
+  extern __shared__ uint32_t smem[];
+  const int rank = threadIdx.x / G;
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kGroupLanes + rank;
   if (lane >= m) return;
-  Fp2 X, Y, Z, xq, yq, X3, Y3, Z3, l0, l1, l2;
-  load2(xin, m, lane, X);
-  load2(yin, m, lane, Y);
-  load2(zin, m, lane, Z);
-  load2(xqin, m, lane, xq);
-  load2(yqin, m, lane, yq);
-  add_step_body(f, X, Y, Z, xq, yq, X3, Y3, Z3, l0, l1, l2);
-  store2(xout, m, lane, X3);
-  store2(yout, m, lane, Y3);
-  store2(zout, m, lane, Z3);
-  store2(l0out, m, lane, l0);
-  store2(l1out, m, lane, l1);
-  store2(l2out, m, lane, l2);
+  const auto grp = gs::tw::group_of<G>(smem + rank * lane_words(S::kSlots));
+  gs::tw::level(grp, 10, [&](int k) {      // X, Y, Z, xq, yq
+    const int64_t* c = k < 2 ? xin : k < 4 ? yin : k < 6 ? zin
+                     : k < 8 ? xqin : yqin;
+    grp.st(S::kPt + k, load_coef(c, 2, k % 2, m, lane));
+  });
+  gs::tw::miller_add_step(
+      t, grp, StepOut{xout, yout, zout, l0out, l1out, l2out, m, lane});
 }
 
 constexpr int kScalarLimbs = 17;               // Fr standard-form limbs
@@ -442,10 +425,6 @@ f12_pow_dyn_kernel(const __grid_constant__ TowerW t, const int64_t* a,
   pow_body<G>(t, a, DynExp{s}, out, m);
 }
 
-unsigned grid_of(int64_t m) {
-  return static_cast<unsigned>((m + kThreads - 1) / kThreads);
-}
-
 unsigned group_grid_of(int64_t m) {
   return static_cast<unsigned>((m + kGroupLanes - 1) / kGroupLanes);
 }
@@ -464,18 +443,16 @@ cudaError_t allow_smem(K kernel, int bytes) {
                              cudaSharedmemCarveoutMaxShared);
 }
 
-// One launch of a power kernel (cyc_pow_kernel<G>, f12_pow_dyn_kernel<G>)
-// over m lanes: a^e, e its exponent argument.
-template <int G, auto kKernel, class X>
-int launch_pow(const int64_t* a, X e, int64_t* out, int64_t m,
-               const uint32_t* p, const uint32_t* one, uint32_t n0,
-               void* stream) {
-  constexpr int bytes = kGroupLanes * lane_words(kCycPowSlots) * 4;
+// One launch of the grouped kernel kKernel (G threads a lane, kGroupLanes
+// lanes a block, kSlots Fq slots of shared memory a lane) over m lanes,
+// with the launch's constants t and the kernel's pointers args, then m.
+template <int G, int kSlots, auto kKernel, class... A>
+int launch_group(int64_t m, void* stream, const TowerW& t, A... args) {
+  constexpr int bytes = kGroupLanes * lane_words(kSlots) * 4;
   static const cudaError_t attr = allow_smem(kKernel, bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   kKernel<<<group_grid_of(m), kGroupLanes * G, bytes,
-            static_cast<cudaStream_t>(stream)>>>(
-      gs::tw::make_tower_w(p, one, n0, nullptr), a, e, out, m);
+            static_cast<cudaStream_t>(stream)>>>(t, args..., m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -486,33 +463,28 @@ extern "C" {
 int gs_fq12_mul(int nl, const int64_t* a, const int64_t* b, int64_t* out,
                 int64_t m, const uint32_t* p, const uint32_t* one,
                 uint32_t n0, void* stream) {
-  if (nl != N) return -1;
+  if (nl != kLimbs) return -1;
   constexpr int G = kFq12MulGroup;
-  constexpr int bytes = kGroupLanes * lane_words(kFq12MulSlots) * 4;
-  static const cudaError_t attr = allow_smem(fq12_mul_kernel<G>, bytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  fq12_mul_kernel<G><<<group_grid_of(m), kGroupLanes * G, bytes,
-                       static_cast<cudaStream_t>(stream)>>>(
-      gs::tw::make_tower_w(p, one, n0, nullptr), a, b, out, m);
-  return static_cast<int>(cudaGetLastError());
+  return launch_group<G, kFq12MulSlots, fq12_mul_kernel<G>>(
+      m, stream, gs::tw::make_tower_w(p, one, n0, nullptr), a, b, out);
 }
 
 int gs_cyc_pow(int nl, const int64_t* a, uint64_t e, int64_t* out, int64_t m,
                const uint32_t* p, const uint32_t* one, uint32_t n0,
                void* stream) {
-  if (nl != N) return -1;
+  if (nl != kLimbs) return -1;
   constexpr int G = kCycPowGroup;
-  return launch_pow<G, cyc_pow_kernel<G>>(a, e, out, m, p, one, n0, stream);
+  return launch_group<G, kCycPowSlots, cyc_pow_kernel<G>>(
+      m, stream, gs::tw::make_tower_w(p, one, n0, nullptr), a, e, out);
 }
 
 int gs_cyc_sqr(int nl, const int64_t* a, int64_t* out, int64_t m,
                const uint32_t* p, const uint32_t* one, uint32_t n0,
                void* stream) {
-  if (nl != N) return -1;
-  cyc_sqr_kernel<<<grid_of(m), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      gs::make_field<N>(p, one, n0), a, out, m);
-  return static_cast<int>(cudaGetLastError());
+  if (nl != kLimbs) return -1;
+  constexpr int G = kCycSqrGroup;
+  return launch_group<G, kCycSqrSlots, cyc_sqr_kernel<G>>(
+      m, stream, gs::tw::make_tower_w(p, one, n0, nullptr), a, out);
 }
 
 int gs_miller_iter_dbl(int nl, const int64_t* fin, const int64_t* xin,
@@ -521,18 +493,11 @@ int gs_miller_iter_dbl(int nl, const int64_t* fin, const int64_t* xin,
                        int64_t* xout, int64_t* yout, int64_t* zout,
                        int64_t m, const uint32_t* p, const uint32_t* one,
                        const uint32_t* tinv, uint32_t n0, void* stream) {
-  if (nl != N) return -1;
+  if (nl != kLimbs) return -1;
   constexpr int G = kDblGroup;
-  constexpr int bytes =
-      kGroupLanes * lane_words(gs::tw::DblSlots::kSlots) * 4;
-  static const cudaError_t attr =
-      allow_smem(miller_iter_dbl_kernel<G>, bytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  miller_iter_dbl_kernel<G><<<group_grid_of(m), kGroupLanes * G, bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
-      gs::tw::make_tower_w(p, one, n0, tinv), fin, xin, yin, zin, px, py,
-      fout, xout, yout, zout, m);
-  return static_cast<int>(cudaGetLastError());
+  return launch_group<G, gs::tw::DblSlots::kSlots, miller_iter_dbl_kernel<G>>(
+      m, stream, gs::tw::make_tower_w(p, one, n0, tinv), fin, xin, yin, zin,
+      px, py, fout, xout, yout, zout);
 }
 
 int gs_miller_iter_add(int nl, const int64_t* fin, const int64_t* xin,
@@ -542,27 +507,20 @@ int gs_miller_iter_add(int nl, const int64_t* fin, const int64_t* xin,
                        int64_t* xout, int64_t* yout, int64_t* zout,
                        int64_t m, const uint32_t* p, const uint32_t* one,
                        uint32_t n0, void* stream) {
-  if (nl != N) return -1;
+  if (nl != kLimbs) return -1;
   constexpr int G = kAddGroup;
-  constexpr int bytes =
-      kGroupLanes * lane_words(gs::tw::AddSlots::kSlots) * 4;
-  static const cudaError_t attr =
-      allow_smem(miller_iter_add_kernel<G>, bytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  miller_iter_add_kernel<G><<<group_grid_of(m), kGroupLanes * G, bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
-      gs::tw::make_tower_w(p, one, n0, nullptr), fin, xin, yin, zin, xq, yq,
-      px, py, fout, xout, yout, zout, m);
-  return static_cast<int>(cudaGetLastError());
+  return launch_group<G, gs::tw::AddSlots::kSlots, miller_iter_add_kernel<G>>(
+      m, stream, gs::tw::make_tower_w(p, one, n0, nullptr), fin, xin, yin,
+      zin, xq, yq, px, py, fout, xout, yout, zout);
 }
 
 int gs_f12_pow_dyn(int nl, int ns, const int64_t* a, const int64_t* s,
                    int64_t* out, int64_t m, const uint32_t* p,
                    const uint32_t* one, uint32_t n0, void* stream) {
-  if (nl != N || ns != kScalarLimbs) return -1;
+  if (nl != kLimbs || ns != kScalarLimbs) return -1;
   constexpr int G = kPowDynGroup;
-  return launch_pow<G, f12_pow_dyn_kernel<G>>(a, s, out, m, p, one, n0,
-                                              stream);
+  return launch_group<G, kCycPowSlots, f12_pow_dyn_kernel<G>>(
+      m, stream, gs::tw::make_tower_w(p, one, n0, nullptr), a, s, out);
 }
 
 int gs_miller_dbl_step(int nl, const int64_t* xin, const int64_t* yin,
@@ -570,18 +528,12 @@ int gs_miller_dbl_step(int nl, const int64_t* xin, const int64_t* yin,
                        int64_t* zout, int64_t* l0, int64_t* l1, int64_t* l2,
                        int64_t m, const uint32_t* p, const uint32_t* one,
                        const uint32_t* tinv, uint32_t n0, void* stream) {
-  if (nl != N) return -1;
+  if (nl != kLimbs) return -1;
   constexpr int G = kDblStepGroup;
-  constexpr int bytes =
-      kGroupLanes * lane_words(gs::tw::DblStepSlots::kSlots) * 4;
-  static const cudaError_t attr =
-      allow_smem(miller_dbl_step_kernel<G>, bytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  miller_dbl_step_kernel<G><<<group_grid_of(m), kGroupLanes * G, bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
-      gs::tw::make_tower_w(p, one, n0, tinv), xin, yin, zin, xout, yout,
-      zout, l0, l1, l2, m);
-  return static_cast<int>(cudaGetLastError());
+  return launch_group<G, gs::tw::DblStepSlots::kSlots,
+                      miller_dbl_step_kernel<G>>(
+      m, stream, gs::tw::make_tower_w(p, one, n0, tinv), xin, yin, zin, xout,
+      yout, zout, l0, l1, l2);
 }
 
 int gs_miller_add_step(int nl, const int64_t* xin, const int64_t* yin,
@@ -590,12 +542,12 @@ int gs_miller_add_step(int nl, const int64_t* xin, const int64_t* yin,
                        int64_t* zout, int64_t* l0, int64_t* l1, int64_t* l2,
                        int64_t m, const uint32_t* p, const uint32_t* one,
                        uint32_t n0, void* stream) {
-  if (nl != N) return -1;
-  miller_add_step_kernel<<<grid_of(m), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      gs::make_field<N>(p, one, n0), xin, yin, zin, xq, yq, xout, yout, zout,
-      l0, l1, l2, m);
-  return static_cast<int>(cudaGetLastError());
+  if (nl != kLimbs) return -1;
+  constexpr int G = kAddStepGroup;
+  return launch_group<G, gs::tw::AddStepSlots::kSlots,
+                      miller_add_step_kernel<G>>(
+      m, stream, gs::tw::make_tower_w(p, one, n0, nullptr), xin, yin, zin, xq,
+      yq, xout, yout, zout, l0, l1, l2);
 }
 
 }  // extern "C"

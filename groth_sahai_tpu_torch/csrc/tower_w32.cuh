@@ -1,15 +1,15 @@
-// The Fq2 / Fq6 / Fq12 formulas of the kernels fq12_mul, cyc_pow,
-// f12_pow_dyn, miller_iter_dbl, miller_iter_add and miller_dbl_step on
-// packed 32-bit words (field_w32.cuh), worked by a group of G threads per
-// lane.
+// The Fq2 / Fq6 / Fq12 formulas of the kernels fq12_mul, cyc_pow, cyc_sqr,
+// f12_pow_dyn, miller_iter_dbl, miller_iter_add, miller_dbl_step and
+// miller_add_step on packed 32-bit words (field_w32.cuh), worked by a group
+// of G threads per lane.
 //
 // The formulas, k p offsets and post-reductions are the reference's
 // (pallas_tower.py: _f2_mul, _f6_mul, _f12_mul, _f12_post_red,
 // _cyc_sqr_body, _dbl_step_body and _add_step_body with _f2_mulred and
-// _f2_mul_fq, _sparse_line_mul), as tower.cuh and the plain versions
-// (ops/cuda_tower.py) write them, step for step: every value is the same
-// integer, so the 16-bit limbs at the boundary equal the plain versions'. An Fq value is 13 packed
-// words at R = 2^400, and every Montgomery product is field_w32.cuh's
+// _f2_mul_fq, _sparse_line_mul), as the plain versions (ops/cuda_tower.py)
+// write them, step for step: every value is the same integer, so the
+// 16-bit limbs at the boundary equal the plain versions'. An Fq value is 13
+// packed words at R = 2^400, and every Montgomery product is field_w32.cuh's
 // out-of-line `mont`, operands and result in registers. mul12 is the
 // reference's mul_small(., 12).
 //
@@ -130,9 +130,9 @@ __device__ __forceinline__ void kara_ops(int q, A a, B b, Fw& x, Fw& y) {
   }
 }
 
-// Component u of a Karatsuba Fq2 product whose leaves t0, t1, t2 sit at
-// slots L, L + 1, L + 2 (tower.cuh f2_mul): c0 = t0 - t1 + 2p (< 4p),
-// c1 = t2 - t0 + 2p - t1 + 2p (< 6p).
+// Component u of a Karatsuba Fq2 product whose leaves t0 = a0 b0, t1 =
+// a1 b1, t2 = (a0 + a1)(b0 + b1) sit at slots L, L + 1, L + 2 (_f2_mul):
+// c0 = t0 - t1 + 2p (< 4p), c1 = t2 - t0 + 2p - t1 + 2p (< 6p).
 template <int G>
 __device__ __forceinline__ Fw kara(const TowerW& t, const Group<G>& grp,
                                    int L, int u) {
@@ -260,10 +260,11 @@ __device__ __forceinline__ void f12_mul(const TowerW& t, const Group<G>& grp,
 // ----------------------------------------------------- the cyclotomic square
 
 // Level 1 of the square of a (slots A): task k = 2 q + h, component h of
-// the Fq2 square q (tower.cuh f2_sqr) of x0[q], x1[q - 3] or x0[q - 6] +
-// x1[q - 6], with x0 = (c0, c3, c1), x1 = (c4, c2, c5) in Fq2 coefficients
-// m = 3 i + j (Fq coefficients 6 i + 2 j + u): h = 0: (w0 + w1)(w0 - w1 +
-// 4p); h = 1: w0 w1, which the task doubles after the product.
+// the complex Fq2 square q (_cyc_sqr_body's f2sqr: (w0 + w1)(w0 - w1 + 4p)
+// < 2p, 2 w0 w1 < 4p) of x0[q], x1[q - 3] or x0[q - 6] + x1[q - 6], with
+// x0 = (c0, c3, c1), x1 = (c4, c2, c5) in Fq2 coefficients m = 3 i + j
+// (Fq coefficients 6 i + 2 j + u): h = 0: (w0 + w1)(w0 - w1 + 4p); h = 1:
+// w0 w1, which the task doubles after the product.
 template <int G>
 __device__ __forceinline__ void cyc_leaf_ops(const TowerW& t,
                                              const Group<G>& grp, int A,
@@ -291,7 +292,7 @@ __device__ __forceinline__ void cyc_leaf_ops(const TowerW& t,
 
 // Level 2 of the square, before the post-reduction: out coefficient k =
 // 6 i + 2 j + u from the squares at SQ (s0, s1, sx at Fq2 q = r, 3 + r,
-// 6 + r) and a (tower.cuh cyc_sqr_red): ta = s0 + xi(s1), tb = sx - s0 -
+// 6 + r) and a (_cyc_sqr_body): ta = s0 + xi(s1), tb = sx - s0 -
 // s1; out[0][j] = 3 ta_j - 2 a[0][j]; out[1][0] = 3 xi(tb_2) + 2 a[1][0],
 // out[1][j] = 3 tb_(j-1) + 2 a[1][j].
 template <int G>
@@ -319,8 +320,10 @@ __device__ __forceinline__ Fw cyc_comb(const TowerW& t, const Group<G>& grp,
   return add(dbl(add(b, grp.ld(A + 6 + 2 * j + u))), b);
 }
 
-// The cyclotomic square of a (slots A, < 2p) post-reduced into slots OUT
-// (tower.cuh cyc_sqr_red); SQ (18 slots) is scratch. OUT must not be A.
+// The Granger-Scott cyclotomic square of a (slots A, < 2p) post-reduced
+// into slots OUT (< 2p; _cyc_sqr_body): 30 Montgomery products in two
+// levels, 18 and 12, so 2 rounds at G = 32, 3 at 16, 5 at 8 and 8 at 4.
+// SQ (18 slots) is scratch. OUT must not be A.
 template <int G>
 __device__ __forceinline__ void cyc_sqr(const TowerW& t, const Group<G>& grp,
                                         int A, int OUT, int SQ) {
@@ -712,7 +715,14 @@ __device__ __forceinline__ void miller_dbl_step(const TowerW& t,
 //   I   2 (no product): Y3 = theta (g - h + 8p) - eY + 2p.
 // 126 Montgomery products in 17 rounds of G = 8 threads.
 //
-// Bounds (tower.cuh add_step_body and the reference's _sparse_line_mul;
+// The point step is _add_step_body's 13 Fq2 products, 65 Montgomery
+// products: each a Karatsuba product post-reduced to < 2p (_f2_mulred;
+// the squares theta^2, lambda^2 _f2_sqrred), yq Z, xq Z, cc = theta^2,
+// d = lambda^2, e = lambda d, ff = Z cc, g = X d, X3 = lambda h, Z3 = e Z,
+// e Y, theta (g - h + 8p), theta xq, lambda yq; the rest exact adds and
+// k p subtractions.
+//
+// Bounds (the reference's audit of _add_step_body and _sparse_line_mul;
 // units of p): f, X, Z < 2; Y < 10; xq, yq, px, py < 1.
 //   * theta < 12, lambda < 4 (yqZ, xqZ < 2 post-reduced); the widest leaf
 //     of C, (theta0 + theta1)^2 < 24^2; -theta = 16 - theta < 16.
@@ -724,7 +734,8 @@ __device__ __forceinline__ void miller_dbl_step(const TowerW& t,
 //   * G: (lambda0 + lambda1)(h0 + h1) < 8 16, (e0 + e1)(Y0 + Y1) < 4 20,
 //     (theta0 + theta1)((g - h + 8)0 + (g - h + 8)1) < 24 20 = 480, each
 //     <= 2^16; the sparse product's Fq6 values < 18, raw < 54 (K12, K18).
-//   * X3, Z3 < 2; Y3 = theta (g - h + 8) - eY + 2 < 4.
+//   * X3, Z3 < 2; Y3 = theta (g - h + 8) - eY + 2 < 4; the step's line
+//     j < 4, -theta < 16, lambda < 4.
 //
 // The lane's slots: f at kF; leaves at kLeaf (A's at 0 .. 5, C's at 0 ..
 // 11, E's at 0 .. 53, G's at 0 .. 11); the sparse product's Fq6 values at
@@ -736,22 +747,42 @@ struct AddSlots {
                        kC = 100, kD = 104, kE = 112, kSlots = 118;
 };
 
+// The point levels' helpers below read X, Y, Z, xq, yq at slots S::kPt ..
+// S::kPt + 9, yqZ and xqZ at S::kB, cc, d, theta xq, lambda yq at S::kD
+// and e, ff, g at S::kE (AddSlots for the iteration, AddStepSlots for the
+// step).
+
 // theta (u = 0, 1) = Y - yqZ + 2p and lambda (u = 2, 3) = X - xqZ + 2p.
-template <int G>
+template <class S, int G>
 __device__ __forceinline__ Fw add_tl(const TowerW& t, const Group<G>& grp,
                                      int u) {
-  using S = AddSlots;
   const int c = u % 2, pt = u < 2 ? S::kPt + 2 : S::kPt;
   return subk(t, grp.ld(pt + c), grp.ld(S::kB + u), K2);
 }
 
 // h = (e + ff) - 2g + 4p, component u.
-template <int G>
+template <class S, int G>
 __device__ __forceinline__ Fw add_h(const TowerW& t, const Group<G>& grp,
                                     int u) {
-  constexpr int E = AddSlots::kE;
+  constexpr int E = S::kE;
   return subk(t, add(grp.ld(E + u), grp.ld(E + 2 + u)),
               dbl(grp.ld(E + 4 + u)), K4);
+}
+
+// j = theta xq - lambda yq + 2p (< 4p), component u: the step's l0, the
+// iteration's la.
+template <class S, int G>
+__device__ __forceinline__ Fw add_j(const TowerW& t, const Group<G>& grp,
+                                    int u) {
+  return subk(t, grp.ld(S::kD + 4 + u), grp.ld(S::kD + 6 + u), K2);
+}
+
+// Y3 = theta (g - h + 8p) - eY + 2p (< 4p), component u, from eY and
+// theta (g - h + 8p) post-reduced at S::kB, S::kB + 2 (level H's).
+template <class S, int G>
+__device__ __forceinline__ Fw add_y3(const TowerW& t, const Group<G>& grp,
+                                     int u) {
+  return subk(t, grp.ld(S::kB + 2 + u), grp.ld(S::kB + u), K2);
 }
 
 // The operands of Karatsuba leaf k % 3 of the Fq2 product k / 3 of one
@@ -763,6 +794,57 @@ __device__ __forceinline__ void add_leaf_ops(int k, L operand, Fw& x, Fw& y) {
            [&](int u) { return operand(n, 1, u); }, x, y);
 }
 
+// Level A, point step: leaf k < 6 of yq Z, xq Z.
+template <class S, int G>
+__device__ __forceinline__ void add_a_ops(const Group<G>& grp, int k, Fw& x,
+                                          Fw& y) {
+  add_leaf_ops(k, [&](int n, int o, int u) {
+    return grp.ld(S::kPt + 2 * (o == 0 ? 4 - n : 2) + u);
+  }, x, y);
+}
+
+// Level C, point step: leaf k < 12 of theta^2, lambda^2, theta xq,
+// lambda yq.
+template <class S, int G>
+__device__ __forceinline__ void add_c_ops(const TowerW& t,
+                                          const Group<G>& grp, int k, Fw& x,
+                                          Fw& y) {
+  add_leaf_ops(k, [&](int n, int o, int u) {
+    if (o == 0 || n < 2) return add_tl<S>(t, grp, (n % 2 == 0 ? 0 : 2) + u);
+    return grp.ld(S::kPt + 2 * (n + 1) + u);
+  }, x, y);
+}
+
+// Level E, point step: leaf k < 9 of lambda d, Z cc, X d.
+template <class S, int G>
+__device__ __forceinline__ void add_e_ops(const TowerW& t,
+                                          const Group<G>& grp, int k, Fw& x,
+                                          Fw& y) {
+  add_leaf_ops(k, [&](int n, int o, int u) {
+    if (o == 1) return grp.ld(S::kD + (n == 1 ? 0 : 2) + u);
+    return n == 0 ? add_tl<S>(t, grp, 2 + u)
+                  : grp.ld(S::kPt + (n == 1 ? 4 : 0) + u);
+  }, x, y);
+}
+
+// Level G, point step: leaf k < 12 of lambda h, e Z, e Y, theta (g - h +
+// 8p).
+template <class S, int G>
+__device__ __forceinline__ void add_g_ops(const TowerW& t,
+                                          const Group<G>& grp, int k, Fw& x,
+                                          Fw& y) {
+  add_leaf_ops(k, [&](int n, int o, int u) {
+    if (o == 0) {
+      if (n == 0) return add_tl<S>(t, grp, 2 + u);
+      return n == 3 ? add_tl<S>(t, grp, u) : grp.ld(S::kE + u);
+    }
+    if (n == 0) return add_h<S>(t, grp, u);
+    if (n == 3)
+      return subk(t, grp.ld(S::kE + 4 + u), add_h<S>(t, grp, u), K8);
+    return grp.ld(S::kPt + (n == 1 ? 4 : 2) + u);
+  }, x, y);
+}
+
 // The iteration after the lane's inputs are in its slots (f at kF; X, Y,
 // Z, xq, yq at kPt .. kPt + 9; px, py at kPt + 10, kPt + 11): out(kind, c,
 // v) takes f's coefficient c (< 2p) and the components c of X3, Y3, Z3.
@@ -770,15 +852,12 @@ template <int G, class Out>
 __device__ __forceinline__ void miller_add(const TowerW& t,
                                            const Group<G>& grp, Out out) {
   using S = AddSlots;
-  const auto pt = [&](int i, int u) { return grp.ld(S::kPt + 2 * i + u); };
   const auto red = [&](int L, int u) {
     return post_red(t, kara(t, grp, L, u));
   };
   level(grp, 6, [&](int k) {                     // A: yq Z, xq Z
     Fw x, y;
-    add_leaf_ops(k, [&](int n, int o, int u) {
-      return o == 0 ? pt(4 - n, u) : pt(2, u);
-    }, x, y);
+    add_a_ops<S>(grp, k, x, y);
     grp.st(S::kLeaf + k, w32::mont(t.f, x, y));
   });
   level(grp, 4, [&](int k) {                     // B
@@ -788,16 +867,13 @@ __device__ __forceinline__ void miller_add(const TowerW& t,
     Fw x, y;
     int to = S::kLeaf + k;
     if (k < 12) {               // theta^2, lambda^2, theta xq, lambda yq
-      add_leaf_ops(k, [&](int n, int o, int u) {
-        if (o == 0 || n < 2) return add_tl(t, grp, (n % 2 == 0 ? 0 : 2) + u);
-        return pt(n + 1, u);
-      }, x, y);
+      add_c_ops<S>(t, grp, k, x, y);
     } else if (k < 14) {        // lb = (16p - theta) px
-      x = negk(t, add_tl(t, grp, k - 12), K16);
+      x = negk(t, add_tl<S>(t, grp, k - 12), K16);
       y = grp.ld(S::kPt + 10);
       to = S::kC + k - 12;
     } else {                    // lc = lambda py
-      x = add_tl(t, grp, k - 12);
+      x = add_tl<S>(t, grp, k - 12);
       y = grp.ld(S::kPt + 11);
       to = S::kC + k - 12;
     }
@@ -808,16 +884,12 @@ __device__ __forceinline__ void miller_add(const TowerW& t,
   });
   level(grp, 54, [&](int k) {                    // E
     Fw x, y;
-    if (k < 45) {
-      sparse_leaf_ops(grp, S::kF, [&](int u) {   // la = j
-        return subk(t, grp.ld(S::kD + 4 + u), grp.ld(S::kD + 6 + u), K2);
-      }, S::kC, S::kC + 2, k, x, y);
-    } else {                    // lambda d, Z cc, X d
-      add_leaf_ops(k - 45, [&](int n, int o, int u) {
-        if (o == 1) return grp.ld(S::kD + (n == 1 ? 0 : 2) + u);
-        return n == 0 ? add_tl(t, grp, 2 + u) : pt(n == 1 ? 2 : 0, u);
-      }, x, y);
-    }
+    if (k < 45)                 // la = j
+      sparse_leaf_ops(grp, S::kF,
+                      [&](int u) { return add_j<S>(t, grp, u); }, S::kC,
+                      S::kC + 2, k, x, y);
+    else                        // lambda d, Z cc, X d
+      add_e_ops<S>(t, grp, k - 45, x, y);
     grp.st(S::kLeaf + k, w32::mont(t.f, x, y));
   });
   level(grp, 15, [&](int k) {                    // F
@@ -832,15 +904,7 @@ __device__ __forceinline__ void miller_add(const TowerW& t,
       return;
     }
     Fw x, y;                    // lambda h, e Z, e Y, theta (g - h + 8p)
-    add_leaf_ops(k - 12, [&](int n, int o, int u) {
-      if (o == 0) {
-        if (n == 0) return add_tl(t, grp, 2 + u);
-        return n == 3 ? add_tl(t, grp, u) : grp.ld(S::kE + u);
-      }
-      if (n == 0) return add_h(t, grp, u);
-      if (n == 3) return subk(t, grp.ld(S::kE + 4 + u), add_h(t, grp, u), K8);
-      return pt(n == 1 ? 2 : 1, u);
-    }, x, y);
+    add_g_ops<S>(t, grp, k - 12, x, y);
     grp.st(S::kLeaf + k - 12, w32::mont(t.f, x, y));
   });
   level(grp, 8, [&](int k) {                     // H
@@ -851,8 +915,93 @@ __device__ __forceinline__ void miller_add(const TowerW& t,
       grp.st(S::kB + k - 4, r);
   });
   level(grp, 2, [&](int u) {                     // I
-    out(kOutY, u, subk(t, grp.ld(S::kB + 2 + u), grp.ld(S::kB + u), K2));
+    out(kOutY, u, add_y3<S>(t, grp, u));
   });
+}
+
+// ------------------------------------------------ the Miller addition step
+//
+// R <- R + Q and the raw line (l0, l1, l2) = (j, 16p - theta, lambda), not
+// scaled by P (_add_step_body): the point half of miller_add on the same
+// helpers, without f, the sparse product and the line's scaling, in eight
+// levels of products and one without:
+//   A   6: the leaves of yq Z and xq Z;
+//   B   4: their post-reductions (yqZ, xqZ);
+//   C  12: the leaves of theta^2, lambda^2, theta xq, lambda yq; l1 =
+//          16p - theta and l2 = lambda out (no product);
+//   D   8: the four post-reductions (cc, d, theta xq, lambda yq);
+//   E   9: the leaves of lambda d, Z cc, X d; l0 = j = theta xq - lambda yq
+//          + 2p out (no product);
+//   F   6: their post-reductions (e, ff, g);
+//   G  12: the leaves of lambda h, e Z, e Y, theta (g - h + 8p);
+//   H   8: their post-reductions: X3, Z3 out; eY, theta (g - h + 8p);
+//   I   2 (no product): Y3 = theta (g - h + 8p) - eY + 2p out.
+// 65 Montgomery products in 11 rounds of G = 8 threads (18 at G = 4, 8 at
+// G = 16; tower_kernels.cu kAddStepGroup). k p offsets and bounds as the
+// iteration's point step: X3, Z3 < 2p, Y3 < 4p, l0 < 4p, l1 < 16p,
+// l2 < 4p.
+//
+// The lane's slots: X, Y, Z, xq, yq at kPt; yqZ, xqZ (then eY, theta (g -
+// h + 8p)) at kB; cc, d, theta xq, lambda yq at kD; e, ff, g at kE; the
+// leaves of A, C, E and G at kLeaf (6, 12, 9 and 12 of them).
+struct AddStepSlots {
+  static constexpr int kPt = 0, kB = 10, kD = 14, kE = 22, kLeaf = 28,
+                       kSlots = 40;
+};
+
+// The step after X, Y, Z, xq, yq are in the lane's slots at kPt:
+// out(kind, c, v) takes component c of X3, Y3, Z3, l0, l1, l2.
+template <int G, class Out>
+__device__ __forceinline__ void miller_add_step(const TowerW& t,
+                                                const Group<G>& grp,
+                                                Out out) {
+  using S = AddStepSlots;
+  const auto red = [&](int k) {
+    return post_red(t, kara(t, grp, S::kLeaf + 3 * (k / 2), k % 2));
+  };
+  const auto leaf = [&](int k, const Fw& x, const Fw& y) {
+    grp.st(S::kLeaf + k, w32::mont(t.f, x, y));
+  };
+  level(grp, 6, [&](int k) {                     // A: yq Z, xq Z
+    Fw x, y;
+    add_a_ops<S>(grp, k, x, y);
+    leaf(k, x, y);
+  });
+  level(grp, 4, [&](int k) { grp.st(S::kB + k, red(k)); });      // B
+  level(grp, 16, [&](int k) {                    // C
+    if (k < 12) {
+      Fw x, y;
+      add_c_ops<S>(t, grp, k, x, y);
+      leaf(k, x, y);
+    } else {                    // l1 = 16p - theta, l2 = lambda
+      const Fw v = add_tl<S>(t, grp, k - 12);
+      out(k < 14 ? kOutL1 : kOutL2, k % 2, k < 14 ? negk(t, v, K16) : v);
+    }
+  });
+  level(grp, 8, [&](int k) { grp.st(S::kD + k, red(k)); });      // D
+  level(grp, 11, [&](int k) {                    // E
+    if (k < 9) {
+      Fw x, y;
+      add_e_ops<S>(t, grp, k, x, y);
+      leaf(k, x, y);
+    } else {                    // l0 = j
+      out(kOutL0, k - 9, add_j<S>(t, grp, k - 9));
+    }
+  });
+  level(grp, 6, [&](int k) { grp.st(S::kE + k, red(k)); });      // F
+  level(grp, 12, [&](int k) {                    // G
+    Fw x, y;
+    add_g_ops<S>(t, grp, k, x, y);
+    leaf(k, x, y);
+  });
+  level(grp, 8, [&](int k) {                     // H
+    const Fw r = red(k);
+    if (k < 4)
+      out(k < 2 ? kOutX : kOutZ, k % 2, r);
+    else
+      grp.st(S::kB + k - 4, r);
+  });
+  level(grp, 2, [&](int u) { out(kOutY, u, add_y3<S>(t, grp, u)); });  // I
 }
 
 }  // namespace tw

@@ -1,13 +1,10 @@
 """Hand-written Hopper kernels of the Fq12 tower, with their plain versions.
 
 The port of eight kernels of ``groth_sahai_tpu/ops/pallas_tower.py``, written
-in CUDA C++ for ``sm_90a`` in ``csrc/tower_kernels.cu``: ``cyc_sqr`` and
-``miller_add_step`` over the in-thread tower formulas ``csrc/tower.cuh``
-(on ``csrc/field.cuh``), and ``fq12_mul``, ``cyc_pow``, ``f12_pow_dyn``,
-``miller_iter_dbl``, ``miller_iter_add`` and ``miller_dbl_step`` over
+in CUDA C++ for ``sm_90a`` in ``csrc/tower_kernels.cu``, all over
 ``csrc/tower_w32.cuh`` (packed 32-bit words, ``csrc/field_w32.cuh``, a
-group of threads per lane, ``csrc/group_w32.cuh``; the doubling step on
-the doubling iteration's point levels):
+group of threads per lane, ``csrc/group_w32.cuh``; ``cyc_sqr`` on
+``cyc_pow``'s square, each step on its iteration's point levels):
 
   ===============  =================================  ========================
   wrapper          replaces (TPU kernel)              computes
@@ -35,15 +32,15 @@ line of one Miller iteration alone, entry points with no caller in either
 package (the iterations supersede them).
 
 What bounds them on the H100: an Fq12 product is 66 Montgomery products
-per lane against 7.2 KB of int64 limbs moved, so every kernel here is
-bound by the multiplier; at the few thousand lanes of their calls (four
-for the verifier's final exponentiation), one thread per lane leaves most
-of the card idle and each thread's dependent chain sets the time.
-fq12_mul, cyc_pow, f12_pow_dyn, the two Miller iterations and the
-doubling step shorten that chain: each lane is worked by a group of
-threads (fq12_mul and f12_pow_dyn 16, cyc_pow 32, the iterations 8, the
-doubling step 4), which take the independent products of each level of
-the formulas side by side, with the lane's values in shared memory.
+per lane against 7.2 KB of int64 limbs moved, so every kernel here but
+``cyc_sqr`` (30 products on 4.8 KB) is bound by the multiplier; at the few
+thousand lanes of their calls (four for the verifier's final
+exponentiation), one thread per lane leaves most of the card idle and each
+thread's dependent chain sets the time. Every kernel shortens that chain:
+each lane is worked by a group of threads (fq12_mul and f12_pow_dyn 16,
+cyc_pow 32, the iterations and the addition step 8, the doubling step and
+cyc_sqr 4), which take the independent products of each level of the
+formulas side by side, with the lane's values in shared memory.
 
 Dispatch rule: a CPU tensor runs the plain PyTorch version; a CUDA tensor
 launches the kernel or raises. Each wrapper counts its launches in
@@ -65,8 +62,7 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _U32 = ctypes.c_uint32
 LIBRARY = KernelLibrary("gs_tower", "tower_kernels.cu",
-                        ["tower.cuh", "field.cuh", "tower_w32.cuh",
-                         "group_w32.cuh", "field_w32.cuh"], {
+                        ["tower_w32.cuh", "group_w32.cuh", "field_w32.cuh"], {
     "gs_fq12_mul": [_I, _P, _P, _P, _I64, _P, _P, _U32, _P],
     "gs_cyc_pow": [_I, _P, ctypes.c_uint64, _P, _I64, _P, _P, _U32, _P],
     "gs_cyc_sqr": [_I, _P, _P, _I64, _P, _P, _U32, _P],

@@ -1,6 +1,7 @@
 """Group sizes of the grouped tower kernels, timed side by side.
 
-    python3 -m groth_sahai_tpu_torch.utils.tower_variants [--against DIR]
+    python3 -m groth_sahai_tpu_torch.utils.tower_variants [--step]
+        [--against DIR]
 
 Needs one NVIDIA H100 (sm_90a) and nvcc. Builds `csrc/tower_kernels.cu` as
 it stands and with the threads a lane of fq12_mul, cyc_pow,
@@ -8,7 +9,7 @@ miller_iter_dbl, miller_iter_add and f12_pow_dyn (`kFq12MulGroup`,
 `kCycPowGroup`, `kDblGroup`, `kAddGroup`, `kPowDynGroup`) all set to each
 of 4, 8, 16 and 32 in copies of its sources, one nvcc each, all at once,
 into `groth_sahai_tpu_torch/build/tower_variants/`. For each it prints
-ptxas's report of the five kernels and of `mont` (frame, spills,
+ptxas's report of the eight kernels and of `mont` (frame, spills,
 registers) and their SASS (instructions, and the mix of their Montgomery
 product), then times, by CUDA events, fq12_mul over 4 lanes (the final
 exponentiation's products), 256, 2048 (the first halving of verify's
@@ -25,11 +26,13 @@ against the plain versions. With
 points) is timed as one more variant. Inputs are seeded, at the kernels'
 input bounds. Prints the card's name and power limit.
 
-With `--step`, the doubling step's threads a lane (`kDblStepGroup`) are
-set to each of STEP_GROUPS instead, and miller_dbl_step over 4096 lanes
-(miller-steps-4096's) and miller_iter_dbl over 4096 (the kernel whose
-point levels the step shares) are timed, each by the profiler's device
-time a launch and CUDA events a call.
+With `--step`, the two steps' threads a lane (`kDblStepGroup`,
+`kAddStepGroup`) are set together to each of STEP_GROUPS, and cyc_sqr's
+(`kCycSqrGroup`) to each of CYC_SQR_GROUPS, instead; miller_dbl_step and
+miller_add_step over 4096 lanes (miller-steps-4096's), miller_iter_dbl and
+miller_iter_add over 4096 (the kernels whose point levels the steps
+share) and cyc_sqr over 4096 (pairing-4096's) are timed, each by the
+profiler's device time a launch and CUDA events a call.
 """
 
 from __future__ import annotations
@@ -50,15 +53,18 @@ from .curve_variants import _bind, _device_ms, _events_ms, _limbs, \
     build_variants, card_line, group_variants, ptxas_report, sass_report
 
 OUT = cuda_build.BUILD_DIR / "tower_variants"
-TOWER_SASS = (r"(fq12_mul|cyc_pow|miller_iter_dbl|miller_iter_add|"
-              r"f12_pow_dyn|miller_dbl_step)_kernelILi(\d+)E",
+TOWER_SASS = (r"(fq12_mul|cyc_pow|cyc_sqr|miller_iter_dbl|miller_iter_add|"
+              r"f12_pow_dyn|miller_dbl_step|miller_add_step)_kernelILi(\d+)E",
               "{} at {} threads a lane")
-# ptxas lines: the five kernels, and the Montgomery product they call
-PTXAS = (r"fq12_mul_kernel|cyc_pow_kernel|miller_iter_dbl_kernel|"
-         r"miller_iter_add_kernel|f12_pow_dyn_kernel|"
-         r"miller_dbl_step_kernel|mont")
+# ptxas lines: the eight kernels, and the Montgomery product they call
+PTXAS = (r"fq12_mul_kernel|cyc_pow_kernel|cyc_sqr_kernel|"
+         r"miller_iter_dbl_kernel|miller_iter_add_kernel|f12_pow_dyn_kernel|"
+         r"miller_dbl_step_kernel|miller_add_step_kernel|mont")
 STEP_GROUPS = (4, 8, 16)
-_STEP_CONST = re.compile(r"(constexpr int (kDblStepGroup) = )(\d+);")
+CYC_SQR_GROUPS = (4, 8, 16, 32)
+_STEP_CONST = re.compile(r"(constexpr int (kDblStepGroup|kAddStepGroup) = )"
+                         r"(\d+);")
+_CYC_SQR_CONST = re.compile(r"(constexpr int (kCycSqrGroup) = )(\d+);")
 _CONST = re.compile(r"(constexpr int (kFq12MulGroup|kCycPowGroup|"
                     r"kDblGroup|kAddGroup|kPowDynGroup) = )(\d+);")
 
@@ -76,9 +82,16 @@ def variants() -> dict:
 
 
 def step_variants() -> dict:
-    """As built, then the doubling step at each G of STEP_GROUPS."""
-    return group_variants("tower_kernels.cu", _STEP_CONST,
-                          built_groups(_STEP_CONST), STEP_GROUPS)
+    """As built, then the two steps at each G of STEP_GROUPS ("steps
+    G=4", ...) and cyc_sqr at each G of CYC_SQR_GROUPS ("cyc_sqr G=4",
+    ...) that is not the committed choice."""
+    out = {}
+    for label, const, groups in (("steps", _STEP_CONST, STEP_GROUPS),
+                                 ("cyc_sqr", _CYC_SQR_CONST, CYC_SQR_GROUPS)):
+        for name, edit in group_variants("tower_kernels.cu", const,
+                                         built_groups(const), groups).items():
+            out[name if name == "as built" else f"{label} {name}"] = edit
+    return out
 
 
 def _dbl_case(gen, lanes, args, stream):
@@ -102,13 +115,38 @@ def _dbl_case(gen, lanes, args, stream):
     return (f"miller_iter_dbl, {lanes} lanes", lanes, dbl_call, dbl_plain)
 
 
+def _add_case(gen, lanes, args, stream):
+    """miller_iter_add over `lanes` lanes: f < 2p, X, Z < 2p, Y < 10p,
+    Q, P < p."""
+    f = _limbs((12, lanes), 2, gen)
+    R = [_limbs((2, lanes), b, gen) for b in (2, 10, 2)]
+    Q = [_limbs((2, lanes), 1, gen) for _ in range(2)]
+    P = [_limbs((lanes,), 1, gen) for _ in range(2)]
+
+    def add_call(lib, f=f, R=R, Q=Q, P=P, lanes=lanes):
+        fo = torch.empty_like(f)
+        rs = [torch.empty_like(R[0]) for _ in range(3)]
+        check(lib.gs_miller_iter_add(
+            FQ.n, *(x.data_ptr() for x in [f] + R + Q + P + [fo] + rs),
+            lanes, *args, FQ.n0, stream), "miller_iter_add", FQ.n)
+        return [fo] + rs
+
+    def add_plain(f=f, R=R, Q=Q, P=P):
+        fo, rs = CT.miller_iter_add_plain(f, tuple(R), tuple(Q), *P)
+        return [fo] + list(rs)
+    return (f"miller_iter_add, {lanes} lanes", lanes, add_call, add_plain)
+
+
 def step_cases(gen):
     """miller_dbl_step over 4096 lanes (X, Z < 2p, Y < 10p), then
-    miller_iter_dbl over 4096."""
+    miller_iter_dbl over 4096; miller_add_step over 4096 (Q < p) and
+    miller_iter_add over 4096; cyc_sqr over 4096 (a < 2p)."""
     args = (host_words(FQ, FQ.p), host_words(FQ, FQ.r_mod_p))
     stream = torch.cuda.current_stream().cuda_stream
     lanes = 4096
     R = [_limbs((2, lanes), b, gen) for b in (2, 10, 2)]
+    Q = [_limbs((2, lanes), 1, gen) for _ in range(2)]
+    a = _limbs((12, lanes), 2, gen)
 
     def step_call(lib, R=R, lanes=lanes):
         outs = [torch.empty_like(R[0]) for _ in range(6)]
@@ -121,8 +159,29 @@ def step_cases(gen):
     def step_plain(R=R):
         R3, line = CT.miller_dbl_step_plain(tuple(R), (FQ.p + 1) // 2)
         return list(R3) + list(line)
+
+    def add_step_call(lib, R=R, Q=Q, lanes=lanes):
+        outs = [torch.empty_like(R[0]) for _ in range(6)]
+        check(lib.gs_miller_add_step(
+            FQ.n, *(x.data_ptr() for x in R + Q + outs), lanes, *args,
+            FQ.n0, stream), "miller_add_step", FQ.n)
+        return outs
+
+    def add_step_plain(R=R, Q=Q):
+        R3, line = CT.miller_add_step_plain(tuple(R), tuple(Q))
+        return list(R3) + list(line)
+
+    def sqr_call(lib, a=a, lanes=lanes):
+        o = torch.empty_like(a)
+        check(lib.gs_cyc_sqr(FQ.n, a.data_ptr(), o.data_ptr(), lanes, *args,
+                             FQ.n0, stream), "cyc_sqr", FQ.n)
+        return [o]
     return [(f"miller_dbl_step, {lanes} lanes", lanes, step_call,
-             step_plain), _dbl_case(gen, lanes, args, stream)]
+             step_plain), _dbl_case(gen, lanes, args, stream),
+            (f"miller_add_step, {lanes} lanes", lanes, add_step_call,
+             add_step_plain), _add_case(gen, lanes, args, stream),
+            (f"cyc_sqr, {lanes} lanes", lanes, sqr_call,
+             lambda a=a: [CT.cyc_sqr_plain(a)])]
 
 
 def cases(gen):
@@ -152,25 +211,7 @@ def cases(gen):
         out.append((f"cyc_pow, {lanes} lanes", lanes, pow_call,
                     lambda a=a: [CT.cyc_pow_plain(a, abs(C.X))]))
     out.append(_dbl_case(gen, 4096, args, stream))
-    for lanes in (4096, 128, 32):
-        f = _limbs((12, lanes), 2, gen)
-        R = [_limbs((2, lanes), b, gen) for b in (2, 10, 2)]
-        Q = [_limbs((2, lanes), 1, gen) for _ in range(2)]
-        P = [_limbs((lanes,), 1, gen) for _ in range(2)]
-
-        def add_call(lib, f=f, R=R, Q=Q, P=P, lanes=lanes):
-            fo = torch.empty_like(f)
-            rs = [torch.empty_like(R[0]) for _ in range(3)]
-            check(lib.gs_miller_iter_add(
-                FQ.n, *(x.data_ptr() for x in [f] + R + Q + P + [fo] + rs),
-                lanes, *args, FQ.n0, stream), "miller_iter_add", FQ.n)
-            return [fo] + rs
-
-        def add_plain(f=f, R=R, Q=Q, P=P):
-            fo, rs = CT.miller_iter_add_plain(f, tuple(R), tuple(Q), *P)
-            return [fo] + list(rs)
-        out.append((f"miller_iter_add, {lanes} lanes", lanes, add_call,
-                    add_plain))
+    out += [_add_case(gen, lanes, args, stream) for lanes in (4096, 128, 32)]
     for lanes in (4096, 1024):
         a = _limbs((12, lanes), 2, gen)
         s = torch.randint(0, 1 << 16, (FR.n, lanes), generator=gen,
@@ -202,7 +243,8 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     if opts.step:
-        print(f"as built: {built_groups(_STEP_CONST)}", flush=True)
+        print(f"as built: {built_groups(_STEP_CONST)} "
+              f"{built_groups(_CYC_SQR_CONST)}", flush=True)
         edits, make = step_variants(), step_cases
     else:
         print(f"as built: {built_groups()}", flush=True)

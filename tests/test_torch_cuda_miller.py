@@ -1,6 +1,6 @@
-"""The port's Miller-iteration and dynamic-power kernels
+"""The port's Miller-iteration, Miller-step and dynamic-power kernels
 (groth_sahai_tpu_torch.ops.cuda_tower: miller_iter_dbl, miller_iter_add,
-cyc_sqr, f12_pow_dyn).
+miller_dbl_step, miller_add_step, cyc_sqr, f12_pow_dyn).
 
 Their plain versions are held limb for limb against the in-kernel bodies of
 the JAX package's Pallas kernels (`pallas_tower._dbl_step_body`,
@@ -206,7 +206,9 @@ def test_new_wrappers_never_fall_back():
     for call in (lambda: CT.cyc_sqr(z(12, 2)),
                  lambda: CT.miller_iter_dbl(z(12, 2), R, z(2), z(2)),
                  lambda: CT.miller_iter_add(z(12, 2), R, R[:2], z(2), z(2)),
-                 lambda: CT.f12_pow_dyn(z(12, 2), z(2)[:FR.n])):
+                 lambda: CT.f12_pow_dyn(z(12, 2), z(2)[:FR.n]),
+                 lambda: CT.miller_dbl_step(R, (C.P + 1) // 2),
+                 lambda: CT.miller_add_step(R, R[:2])):
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
             call()
 
@@ -232,16 +234,19 @@ def card_inputs(lanes):
 @pytest.mark.gpu
 @pytest.mark.parametrize("lanes", [70, 1003])
 @pytest.mark.parametrize("name", ["cyc_sqr", "miller_iter_dbl",
-                                  "miller_iter_add", "f12_pow_dyn"])
+                                  "miller_iter_add", "f12_pow_dyn",
+                                  "miller_dbl_step", "miller_add_step"])
 def test_miller_kernels_match_plain_on_card(name, lanes):
     """Each kernel against its plain version; 1003 lanes end in a ragged
-    block of miller_iter_dbl's lane groups."""
+    block of lane groups (8 lanes a block in every grouped kernel)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernels are CUDA C++ for sm_90a")
     f, R, Q, P, s = card_inputs(lanes)
     kern = getattr(CT, name)
     args = {"cyc_sqr": (f,), "miller_iter_dbl": (f, R, *P),
-            "miller_iter_add": (f, R, Q, *P), "f12_pow_dyn": (f, s)}[name]
+            "miller_iter_add": (f, R, Q, *P), "f12_pow_dyn": (f, s),
+            "miller_dbl_step": (R, (C.P + 1) // 2),
+            "miller_add_step": (R, Q)}[name]
     before = kern.launches
     got = kern(*args)
     want = CT.PLAIN[kern](*args)

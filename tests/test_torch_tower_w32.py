@@ -1,30 +1,31 @@
-"""The grouped packed-word tower of cyc_pow, f12_pow_dyn and the two Miller
-iterations.
+"""The grouped packed-word tower of cyc_pow, cyc_sqr, f12_pow_dyn, the two
+Miller iterations and the two Miller steps.
 
-`csrc/tower_w32.cuh` cuts an Fq12 product, a cyclotomic square and the
-Miller doubling and addition iterations into levels of independent tasks
-that the G threads of a lane's group take round-robin, each task reading
-Fq slots of the lane's shared memory that earlier levels wrote and writing
-its own. The kernels run only on a card, so this file holds a pure-Python
-twin of that schedule -- the same levels, tasks, slots and k p offsets,
-each Montgomery product through the twin of the packed-word product in
-test_torch_words.py -- and holds it limb for limb against the plain
-versions `cuda_tower.cyc_pow_plain`, `f12_pow_dyn_plain`,
-`miller_iter_dbl_plain`, `miller_iter_add_plain` and
-`miller_dbl_step_plain` (the doubling step, on the doubling iteration's
-point levels and helpers; themselves held against the JAX package in
-test_torch_cuda_tower.py and test_torch_cuda_miller.py), on seeded inputs
-and on the edges chip_smoke.py uses. The twin asserts the bound audit at
-every step (Montgomery operands < 2^400 with value(a) value(b) <= 2^16 p^2,
-sums < 2^416, every k p subtraction non-negative), that no task reads a
-slot before a level wrote it, and that no two tasks of a level touch a slot
-that one of them writes, so the threads of a group may take the tasks in
-any order; and it counts the rounds of products the header states. For
-schedules of tens of thousands of products (f12_pow_dyn's 272 rounds, the
-curve twin's thousands of lanes) a FastLane computes each Montgomery
-product from its closed form (a b + M p) / 2^400 with M = -a b p^-1 mod
-2^400, the one integer that the packed-word product's instruction twin
-gives (test_torch_words.py), under the same bound asserts.
+`csrc/tower_w32.cuh` cuts an Fq12 product, a cyclotomic square, the Miller
+doubling and addition iterations and their steps into levels of independent
+tasks that the G threads of a lane's group take round-robin, each task
+reading Fq slots of the lane's shared memory that earlier levels wrote and
+writing its own. The kernels run only on a card, so this file holds a
+pure-Python twin of that schedule -- the same levels, tasks, slots and k p
+offsets, each Montgomery product through the twin of the packed-word
+product in test_torch_words.py -- and holds it limb for limb against the
+plain versions `cuda_tower.cyc_pow_plain`, `cyc_sqr_plain`,
+`f12_pow_dyn_plain`, `miller_iter_dbl_plain`, `miller_iter_add_plain`,
+`miller_dbl_step_plain` and `miller_add_step_plain` (each step on its
+iteration's point levels and helpers; themselves held against the JAX
+package in test_torch_cuda_tower.py and test_torch_cuda_miller.py), on
+seeded inputs and on the edges chip_smoke.py uses. The twin asserts the
+bound audit at every step (Montgomery operands < 2^400 with value(a)
+value(b) <= 2^16 p^2, sums < 2^416, every k p subtraction non-negative),
+that no task reads a slot before a level wrote it, and that no two tasks of
+a level touch a slot that one of them writes, so the threads of a group may
+take the tasks in any order; and it counts the rounds of products the
+header states. For schedules of tens of thousands of products
+(f12_pow_dyn's 272 rounds, the curve twin's thousands of lanes) a FastLane
+computes each Montgomery product from its closed form (a b + M p) / 2^400
+with M = -a b p^-1 mod 2^400, the one integer that the packed-word
+product's instruction twin gives (test_torch_words.py), under the same
+bound asserts.
 """
 
 from __future__ import annotations
@@ -279,6 +280,17 @@ def cyc_sqr(ln, A, OUT, SQ):
     ln.level(18, leaf)
     ln.level(12, lambda k: ln.st(OUT + k, ln.post_red(cyc_comb(ln, A, SQ,
                                                                k))))
+
+
+def cyc_sqr_twin(a, lane=Lane):
+    """cyc_sqr_kernel for one lane: a is 12 ints, at slots A = 0; the square
+    into OUT = 12, the Fq2 squares at SQ = 24. Returns 12 ints and the
+    lane."""
+    A, OUT, SQ = 0, 12, 24
+    ln = lane(12 + 12 + 18)
+    ln.level(12, lambda c: ln.st(A + c, a[c]))
+    cyc_sqr(ln, A, OUT, SQ)
+    return [ln.ld(OUT + c) for c in range(12)], ln
 
 
 def cyc_pow_twin(a, e: int):
@@ -560,21 +572,80 @@ AF, ALEAF, AT6, APT, AB, AC, AD, AE, ASLOTS = (0, 12, 66, 84, 96, 100, 104,
                                                112, 118)
 
 
-def add_tl(ln, u):
+class AddSlots:
+    """The addition iteration's point slots (tower_w32.cuh AddSlots)."""
+    PT, B, D, E = APT, AB, AD, AE
+
+
+class AddStepSlots:
+    """The addition step's slots (tower_w32.cuh AddStepSlots)."""
+    PT, B, D, E, LEAF, SLOTS = 0, 10, 14, 22, 28, 40
+
+
+def add_tl(ln, u, S=AddSlots):
     """theta (u = 0, 1) = Y - yqZ + 2p; lambda (u = 2, 3) = X - xqZ + 2p."""
-    pt = APT + 2 if u < 2 else APT
-    return subk(ln.ld(pt + u % 2), ln.ld(AB + u), 2)
+    pt = S.PT + 2 if u < 2 else S.PT
+    return subk(ln.ld(pt + u % 2), ln.ld(S.B + u), 2)
 
 
-def add_h(ln, u):
-    return subk(add(ln.ld(AE + u), ln.ld(AE + 2 + u)), dbl(ln.ld(AE + 4 + u)),
-                4)
+def add_h(ln, u, S=AddSlots):
+    return subk(add(ln.ld(S.E + u), ln.ld(S.E + 2 + u)),
+                dbl(ln.ld(S.E + 4 + u)), 4)
+
+
+def add_j(ln, u, S=AddSlots):
+    """j = theta xq - lambda yq + 2p: the step's l0, the iteration's la."""
+    return subk(ln.ld(S.D + 4 + u), ln.ld(S.D + 6 + u), 2)
+
+
+def add_y3(ln, u, S=AddSlots):
+    return subk(ln.ld(S.B + 2 + u), ln.ld(S.B + u), 2)
 
 
 def add_leaf_ops(k, operand):
     n = k // 3
     return kara_ops(k % 3, lambda u: operand(n, 0, u),
                     lambda u: operand(n, 1, u))
+
+
+def add_a_ops(ln, k, S=AddSlots):
+    """Leaf k < 6 of yq Z, xq Z."""
+    return add_leaf_ops(k, lambda n, o, u: ln.ld(
+        S.PT + 2 * (4 - n if o == 0 else 2) + u))
+
+
+def add_c_ops(ln, k, S=AddSlots):
+    """Leaf k < 12 of theta^2, lambda^2, theta xq, lambda yq."""
+    def operand(n, o, u):
+        if o == 0 or n < 2:
+            return add_tl(ln, (0 if n % 2 == 0 else 2) + u, S)
+        return ln.ld(S.PT + 2 * (n + 1) + u)
+    return add_leaf_ops(k, operand)
+
+
+def add_e_ops(ln, k, S=AddSlots):
+    """Leaf k < 9 of lambda d, Z cc, X d."""
+    def operand(n, o, u):
+        if o == 1:
+            return ln.ld(S.D + (0 if n == 1 else 2) + u)
+        return (add_tl(ln, 2 + u, S) if n == 0
+                else ln.ld(S.PT + (4 if n == 1 else 0) + u))
+    return add_leaf_ops(k, operand)
+
+
+def add_g_ops(ln, k, S=AddSlots):
+    """Leaf k < 12 of lambda h, e Z, e Y, theta (g - h + 8p)."""
+    def operand(n, o, u):
+        if o == 0:
+            if n == 0:
+                return add_tl(ln, 2 + u, S)
+            return add_tl(ln, u, S) if n == 3 else ln.ld(S.E + u)
+        if n == 0:
+            return add_h(ln, u, S)
+        if n == 3:
+            return subk(ln.ld(S.E + 4 + u), add_h(ln, u, S), 8)
+        return ln.ld(S.PT + (4 if n == 1 else 2) + u)
+    return add_leaf_ops(k, operand)
 
 
 def miller_add_twin(f, X, Y, Z, xq, yq, px, py):
@@ -585,21 +656,11 @@ def miller_add_twin(f, X, Y, Z, xq, yq, px, py):
     ln.level(24, lambda k: ln.st(AF + k if k < 12 else APT + k - 12, ins[k]))
     out = {"f": [None] * 12, "X": [None] * 2, "Y": [None] * 2,
            "Z": [None] * 2}
-    pt = lambda i, u: ln.ld(APT + 2 * i + u)
     red = lambda L, u: ln.post_red(kara(ln, L, u))
-
-    def level_a(k):                      # yq Z, xq Z
-        x, y = add_leaf_ops(k, lambda n, o, u: pt(4 - n, u) if o == 0
-                            else pt(2, u))
-        ln.st(ALEAF + k, ln.mont(x, y))
 
     def level_c(k):
         if k < 12:                       # theta^2, lambda^2, theta xq, ...
-            def operand(n, o, u):
-                if o == 0 or n < 2:
-                    return add_tl(ln, (0 if n % 2 == 0 else 2) + u)
-                return pt(n + 1, u)
-            ln.st(ALEAF + k, ln.mont(*add_leaf_ops(k, operand)))
+            ln.st(ALEAF + k, ln.mont(*add_c_ops(ln, k)))
         elif k < 14:                     # lb = (16p - theta) px
             ln.st(AC + k - 12, ln.mont(negk(add_tl(ln, k - 12), 16),
                                        ln.ld(APT + 10)))
@@ -608,16 +669,10 @@ def miller_add_twin(f, X, Y, Z, xq, yq, px, py):
 
     def level_e(k):
         if k < 45:                       # la = j
-            x, y = sparse_leaf_ops(
-                ln, AF, lambda u: subk(ln.ld(AD + 4 + u), ln.ld(AD + 6 + u), 2),
-                AC, AC + 2, k)
+            x, y = sparse_leaf_ops(ln, AF, lambda u: add_j(ln, u), AC, AC + 2,
+                                   k)
         else:                            # lambda d, Z cc, X d
-            def operand(n, o, u):
-                if o == 1:
-                    return ln.ld(AD + (0 if n == 1 else 2) + u)
-                return add_tl(ln, 2 + u) if n == 0 else pt(2 if n == 1 else 0,
-                                                           u)
-            x, y = add_leaf_ops(k - 45, operand)
+            x, y = add_e_ops(ln, k - 45)
         ln.st(ALEAF + k, ln.mont(x, y))
 
     def level_f(k):
@@ -629,19 +684,8 @@ def miller_add_twin(f, X, Y, Z, xq, yq, px, py):
     def level_g(k):
         if k < 12:
             out["f"][k] = ln.post_red(f12_comb(ln, AT6, k, 12, 18))
-            return
-
-        def operand(n, o, u):            # lambda h, e Z, e Y, theta t
-            if o == 0:
-                if n == 0:
-                    return add_tl(ln, 2 + u)
-                return add_tl(ln, u) if n == 3 else ln.ld(AE + u)
-            if n == 0:
-                return add_h(ln, u)
-            if n == 3:
-                return subk(ln.ld(AE + 4 + u), add_h(ln, u), 8)
-            return pt(2 if n == 1 else 1, u)
-        ln.st(ALEAF + k - 12, ln.mont(*add_leaf_ops(k - 12, operand)))
+        else:                            # lambda h, e Z, e Y, theta t
+            ln.st(ALEAF + k - 12, ln.mont(*add_g_ops(ln, k - 12)))
 
     def level_h(k):
         r = red(ALEAF + 3 * (k // 2), k % 2)
@@ -651,8 +695,9 @@ def miller_add_twin(f, X, Y, Z, xq, yq, px, py):
             ln.st(AB + k - 4, r)
 
     def level_i(u):
-        out["Y"][u] = subk(ln.ld(AB + 2 + u), ln.ld(AB + u), 2)
-    for n, task in ((6, level_a),
+        out["Y"][u] = add_y3(ln, u)
+    for n, task in ((6, lambda k: ln.st(ALEAF + k,
+                                         ln.mont(*add_a_ops(ln, k)))),
                     (4, lambda k: ln.st(AB + k, red(ALEAF + 3 * (k // 2),
                                                     k % 2))),
                     (16, level_c),
@@ -662,6 +707,56 @@ def miller_add_twin(f, X, Y, Z, xq, yq, px, py):
                     (2, level_i)):
         ln.level(n, task)
     return (out["f"], out["X"], out["Y"], out["Z"]), ln
+
+
+def miller_add_step_twin(X, Y, Z, xq, yq, lane=Lane):
+    """miller_add_step_kernel for one lane (ints: X .. yq 2 each): the
+    addition iteration's point levels on AddStepSlots, eight levels of
+    products and one without; returns ((X3, Y3, Z3), (l0, l1, l2)) and the
+    lane."""
+    S = AddStepSlots
+    ln = lane(S.SLOTS)
+    ins = X + Y + Z + xq + yq
+    ln.level(10, lambda k: ln.st(S.PT + k, ins[k]))
+    out = {k: [None] * 2 for k in ("X", "Y", "Z", "l0", "l1", "l2")}
+    red = lambda k: ln.post_red(kara(ln, S.LEAF + 3 * (k // 2), k % 2))
+
+    def leaf(ops):
+        return lambda k: ln.st(S.LEAF + k, ln.mont(*ops(ln, k, S)))
+
+    def level_c(k):
+        if k < 12:
+            leaf(add_c_ops)(k)
+        elif k < 14:                     # l1 = 16p - theta
+            out["l1"][k % 2] = negk(add_tl(ln, k - 12, S), 16)
+        else:                            # l2 = lambda
+            out["l2"][k % 2] = add_tl(ln, k - 12, S)
+
+    def level_e(k):
+        if k < 9:
+            leaf(add_e_ops)(k)
+        else:                            # l0 = j
+            out["l0"][k - 9] = add_j(ln, k - 9, S)
+
+    def level_h(k):
+        r = red(k)
+        if k < 4:
+            out["X" if k < 2 else "Z"][k % 2] = r
+        else:
+            ln.st(S.B + k - 4, r)
+
+    def level_i(u):
+        out["Y"][u] = add_y3(ln, u, S)
+    for n, task in ((6, leaf(add_a_ops)),
+                    (4, lambda k: ln.st(S.B + k, red(k))),
+                    (16, level_c),
+                    (8, lambda k: ln.st(S.D + k, red(k))),
+                    (11, level_e),
+                    (6, lambda k: ln.st(S.E + k, red(k))),
+                    (12, leaf(add_g_ops)), (8, level_h), (2, level_i)):
+        ln.level(n, task)
+    return (tuple(out[k] for k in ("X", "Y", "Z")),
+            tuple(out[k] for k in ("l0", "l1", "l2"))), ln
 
 
 # ------------------------------------------------------------------ tests
@@ -732,6 +827,30 @@ def test_group_cyc_pow_matches_plain(e):
         # at G = 32: 2 product rounds a square, 3 a product (plus one
         # level of Fq6 values without products)
         assert ln.rounds[32] == 64 * 2 + ones * 3
+
+
+@pytest.mark.parametrize("lanes", [4096, 8])
+def test_group_cyc_sqr_matches_plain(lanes):
+    """cyc_sqr_kernel's layout (a at 0, the square at 12, the Fq2 squares
+    at 24) against cyc_sqr_plain, limb for limb: seeded lanes < 2p, lane 0
+    with every coefficient 2p - 1, lane 1 zero. 4096 lanes through
+    FastLane, 8 through the packed-word product's instruction twin; 30
+    products in 3 rounds at G = 16 (8 at 4, 5 at 8, 2 at 32), no slot
+    shared within a level, the output < 2p."""
+    a = f12_lanes(56, lanes, 2 * P, [2 * P - 1, 0])
+    want = CT.cyc_sqr_plain(limbs_from_numpy(a, device="cpu")).numpy()
+    va = ints(a)
+    lane_kind = FastLane if lanes > 8 else Lane
+    got = np.zeros((FQ.n, 12, lanes), dtype=np.int64)
+    for lane in range(lanes):
+        out, ln = cyc_sqr_twin([int(va[c, lane]) for c in range(12)],
+                               lane_kind)
+        for c in range(12):
+            got[:, c, lane] = limbs(out[c])
+        assert ln.products == 30
+        assert [ln.rounds[g] for g in (4, 8, 16, 32)] == [8, 5, 3, 2]
+    assert np.array_equal(got, want)
+    assert all(int(v) < 2 * P for v in ints(want).ravel())
 
 
 def test_group_f12_pow_dyn_matches_plain():
@@ -868,15 +987,61 @@ def test_group_miller_iter_add_matches_plain():
         assert (ln.rounds[4], ln.rounds[8], ln.rounds[16]) == (33, 17, 12)
 
 
+@pytest.mark.parametrize("lanes", [4096, 8])
+def test_group_miller_add_step_matches_plain(lanes):
+    """miller_add_step_kernel's levels on AddStepSlots against
+    miller_add_step_plain, limb for limb: X, Z < 2p, Y < 10p, Q < p on
+    seeded lanes, lane 0 at the top of every bound (X = Z = 2p - 1, Y =
+    10p - 1, Q = p - 1), lane 1 with R zero, lane 2 with Q zero. 4096 lanes
+    with each product from its closed form (FastLane), 8 through the
+    packed-word product's instruction twin; 65 products in 11 rounds at
+    G = 8 (18 at 4, 8 at 16), no slot shared within a level, every bound
+    of the audit held: X3, Z3 < 2p, Y3 < 4p, l0 < 4p, l1 < 16p, l2 < 4p."""
+    fq2 = lambda seed, bound, edges: with_edges(
+        rand_coeffs(seed, 2, lanes, bound=bound), edges)
+    X, Y, Z = (fq2(63, 2 * P, [2 * P - 1, 0]),
+               fq2(64, 10 * P, [10 * P - 1, 0]),
+               fq2(65, 2 * P, [2 * P - 1, 0]))
+    xq, yq = fq2(66, P, [P - 1]), fq2(67, P, [P - 1])
+    for q in (xq, yq):
+        q[:, :, 2] = 0
+    t = lambda x: limbs_from_numpy(x, device="cpu")
+    wR, wl = CT.miller_add_step_plain((t(X), t(Y), t(Z)), (t(xq), t(yq)))
+    want = [w.numpy() for w in wR + wl]
+    vs = [ints(x) for x in (X, Y, Z, xq, yq)]
+    lane_kind = FastLane if lanes > 8 else Lane
+    got = np.zeros((6, FQ.n, 2, lanes), dtype=np.int64)
+    for lane in range(lanes):
+        (R3, line), ln = miller_add_step_twin(
+            *([int(v[u, lane]) for u in range(2)] for v in vs),
+            lane=lane_kind)
+        for i, comps in enumerate(R3 + line):
+            for u in range(2):
+                got[i, :, u, lane] = limbs(comps[u])
+        assert ln.products == 65
+        assert (ln.rounds[4], ln.rounds[8], ln.rounds[16]) == (18, 11, 8)
+    for i in range(6):
+        assert np.array_equal(got[i], want[i]), ("X3", "Y3", "Z3", "l0",
+                                                 "l1", "l2")[i]
+    bounds = (2, 4, 2, 4, 16, 4)           # units of p
+    for i, b in enumerate(bounds):
+        assert all(int(v) < b * P for v in ints(want[i]).ravel())
+
+
 def test_tower_variants_imports_neither_jax_nor_the_jax_package():
     """The group-size variants script runs on the card, without JAX (with
-    --step: the doubling step at the two other G of 4, 8, 16)."""
+    --step: the two steps at G = 4, 8, 16 and cyc_sqr at 4, 8, 16, 32,
+    each but the committed one)."""
     repo = pathlib.Path(__file__).resolve().parent.parent
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "import groth_sahai_tpu_torch.utils.tower_variants as tv\n"
             "assert set(tv.variants()) >= {'as built', 'G=4', 'G=16'}\n"
-            "assert len(tv.step_variants()) == 3\n"
+            "sv = tv.step_variants()\n"
+            "assert {n.split(' G=')[0] for n in sv} == {\n"
+            "    'as built', 'steps', 'cyc_sqr'}, sv\n"
+            "assert len(sv) == 1 + 3 + 3 - (len(set(\n"
+            "    tv.built_groups(tv._STEP_CONST).values())) == 1), sv\n"
             "bad = [m for m, mod in sys.modules.items() if mod is not None\n"
             "       and (m == 'groth_sahai_tpu' or m.startswith(\n"
             "            ('groth_sahai_tpu.', 'jax.')) or m == 'jax')]\n"
