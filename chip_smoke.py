@@ -50,7 +50,7 @@ Phases (any failure exits non-zero and prints no result line):
                 infinity, the affine point at infinity, P + P, P + (-P),
                 coordinates at 4p - 1 and 2p - 1; a scan column that is all
                 infinity);
-  3. paths   -- sixteen runs through the port's entry points, each against the
+  3. paths   -- eighteen runs through the port's entry points, each against the
                 host oracle:
                 pairing-8192: `pairing(P, Q)` over 8192 pairs (P_i = a_i G1,
                   Q_i = b_i G2, a few infinity lanes); sampled lanes and the
@@ -97,6 +97,21 @@ Phases (any failure exits non-zero and prints no result line):
                 miller-steps-4096: the Miller loop's point schedule through
                   the step entry points miller_dbl_step and
                   miller_add_step, against the host's twin;
+                batch-verify-ppe-1024: the reference's
+                  batch_verify_randomized_1024 row: 1024 slots of one
+                  make_ppe(2, 1) statement over distinct proofs from
+                  commit_and_prove; verify_ppe_batch_randomized True, False
+                  with slot 517's pi changed, verify_ppe_batch false only
+                  at 517; sampled slots against verify alone, sampled ratios
+                  limb for limb against miller_product_signed, every tower
+                  launch at most 4096 lanes (16 tiles of the Miller batch);
+                  proofs and the CRS through the wire format and back;
+                msm-chunked-g1-262144: 262144 G1 and 8192 G2 points through
+                  the bulk codec (compressed; decompressed and validated on
+                  the card) and back; msm_chunked in four chunks with
+                  checkpoints, one partial deleted and the run resumed,
+                  against (sum s_i a_i) G1 on the host; a point outside the
+                  r-torsion and an x off the curve refused;
                 each counted run records the shape (and exponent) of every
                 launch, and every kernel is then held bit-exact, with
                 inputs made as in phase 2, at each recorded shape that
@@ -217,6 +232,15 @@ PATH_KERNELS = {
     "verify-ppe-334": (MSM_KERNELS + ("cdbl_n_add",) + FIELD + MILLER
                        + ("fq12_mul", "cyc_pow"),
                        ("cmadd", "cyc_sqr", "f12_pow_dyn")),
+    # the batch verifier: Gamma d of all equations is one scalar_mul (K =
+    # 1), the Miller loop runs in tiles of 4096 lanes (fused iterations),
+    # the rho-weighting one f12_pow_dyn launch per gt_exp
+    "batch-verify-ppe-1024": (FIELD + CURVE + MILLER
+                              + ("fq12_mul", "cyc_pow", "f12_pow_dyn"),
+                              ("cyc_sqr",)),
+    # the bulk codec (decompression on pow_const and the Jacobian glue,
+    # validation on scalar_mul by r) and the chunked MSM
+    "msm-chunked-g1-262144": (MSM_KERNELS + CURVE + FIELD, TOWER),
 }
 # No path but the MSM paths runs the MSM; no path but miller-steps-4096
 # runs the Miller step entry points (no caller in either package).
@@ -240,6 +264,11 @@ PPE_SIDE = 8             # m = n of prove-verify-ppe-8x8: the largest PPE
 MSM_POINTS = 65536       # points of msm-g1-65536 (the reference's msm_65536)
 PPE_M = 334              # m = n of prove-ppe-334 and verify-ppe-334
 STEP_LANES = 4096        # Q points of miller-steps-4096
+BAD_SLOT = 517           # batch-verify-ppe-1024's slot with another proof's pi
+MIN_PROOFS = 64          # distinct proofs of batch-verify-ppe-1024, at least,
+PROOF_SECONDS = 45.0     # and as many more as this much card time makes
+CHUNKED_POINTS = 262144  # G1 points of msm-chunked-g1-262144
+CHUNK = 65536            # its chunk size: four chunks
 
 
 def e2e_scalar_muls(x_scalar: bool, y_scalar: bool, quad: bool,
@@ -277,6 +306,15 @@ SCALAR_MULS = {
 # verify-ppe-334 verifies three times (an honest proof, a changed pi, a
 # wrong target): each Gamma d is one msm call.
 SCALAR_MULS["prove-ppe-334"] = 4
+# batch-verify-ppe-1024 runs three batches (randomized, randomized with
+# slot BAD_SLOT changed, per-equation verdicts): each one Gamma d scalar_mul
+# over all equations, 16 tiles of 4096 Miller lanes (1024 equations x 2 x
+# 2 x Kp = 16), and the randomized two gt_exp calls each. msm-chunked-
+# g1-262144 validates two bulk reads (G1, G2) and three resumed partials
+# with one scalar_mul by r each.
+SCALAR_MULS["batch-verify-ppe-1024"] = 3
+SCALAR_MULS["msm-chunked-g1-262144"] = 2 + 3
+BATCH_TILES = -(-EQUATIONS // (FUSED // (4 * 16)))
 VERIFIES = {"gs-e2e": 2 * len(E2E_TYPES), "prove-verify-ppe-8x8": 2,
             "verify-ppe-334": 3}
 for _path, _calls in SCALAR_MULS.items():
@@ -287,6 +325,9 @@ for _path, _calls in VERIFIES.items():
     EXACT[_path, "miller_iter_add"] = 5 * _calls
 EXACT["miller-steps-4096", "miller_dbl_step"] = 63
 EXACT["miller-steps-4096", "miller_add_step"] = 5
+EXACT["batch-verify-ppe-1024", "miller_iter_dbl"] = 3 * BATCH_TILES * 63
+EXACT["batch-verify-ppe-1024", "miller_iter_add"] = 3 * BATCH_TILES * 5
+EXACT["batch-verify-ppe-1024", "f12_pow_dyn"] = 2 * 2
 
 
 def msm_geometry(n_points: int, window: int = 0):
@@ -329,7 +370,9 @@ def msm_calls() -> dict:
     return {"msm-g1-65536": [(MSM_POINTS, 0)],
             "prove-ppe-334": [(kp, ppe_window(PPE_M))] * 4,
             "verify-ppe-334": [(kp, ppe_window(PPE_M))] * VERIFIES[
-                "verify-ppe-334"]}
+                "verify-ppe-334"],
+            # four chunks, then one recomputed after a partial is deleted
+            "msm-chunked-g1-262144": [(CHUNK, 0)] * 5}
 
 
 def exact_counts() -> dict:
@@ -1460,9 +1503,10 @@ def run_msm_g1(device, mult1, rng, shapes):
     return counts, secs, time.perf_counter() - t0, run
 
 
-def ppe_334(device, mult1, mult2, rng):
+def ppe_334(device, mult1, mult2, rng, m=PPE_M, n=PPE_M):
     """The statement of prove-ppe-334 and verify-ppe-334, shaped as the
-    reference's make_ppe(PPE_M, PPE_M) (benches/suite.py): X_i = x_i G1,
+    reference's make_ppe(m, n) (benches/suite.py; m = n = PPE_M here,
+    m = 2, n = 1 for batch-verify-ppe-1024): X_i = x_i G1,
     Y_j = y_j G2, A_j = a_j G1, B_i = b_i G2 with discrete logs drawn from
     1..len(mult), a random Gamma (m x n), and the target from the logs
     alone: t = e(G1, G2)^(sum x_i b_i + sum a_j y_j + sum Gamma_ij x_i
@@ -1474,7 +1518,6 @@ def ppe_334(device, mult1, mult2, rng):
     from groth_sahai_tpu_torch.ops.fp import FR
     from groth_sahai_tpu_torch.ops.tower import FQ12
     from groth_sahai_tpu_torch.models import statement as ST
-    m = n = PPE_M
     draw = lambda mult, k: [rng.randrange(1, len(mult) + 1) for _ in range(k)]
     x, a = draw(mult1, m), draw(mult1, n)
     y, b = draw(mult2, n), draw(mult2, m)
@@ -1677,6 +1720,268 @@ def run_miller_steps(device, mult2, rng, shapes):
     return counts, secs, time.perf_counter() - t0, run
 
 
+def run_batch_verify(device, crs, mult1, mult2, rng, shapes):
+    """batch-verify-ppe-1024: the reference's batch_verify_randomized_1024
+    row (benches/suite.py): EQUATIONS slots of one make_ppe(2, 1)
+    statement (K = 9 Miller pairs, padded to 16), slot b holding proof
+    b mod n of n distinct proofs from commit_and_prove(..., GsRng(6 + i))
+    (at least MIN_PROOFS, and as many more as PROOF_SECONDS of the card
+    make). The counted run: `verify_ppe_batch_randomized` of all slots
+    (True), the same with slot BAD_SLOT's pi taken from another proof
+    (False), and `verify_ppe_batch` of those (True but at BAD_SLOT). Then
+    eight slots (BAD_SLOT among them) against `verify` of their proof
+    alone, four of the last batch's ratios limb for limb against
+    `miller_product_signed` of the batch's pairs of that slot, every
+    tower launch at most FUSED lanes wide, and eight proofs and the CRS
+    through the wire format (validated) and back."""
+    import dataclasses
+    import torch
+    from groth_sahai_tpu_torch.ops.curve import (g1_affine_to_ints,
+                                                 g2_affine_to_ints)
+    from groth_sahai_tpu_torch.models import batch as BT
+    from groth_sahai_tpu_torch.models import commit_group as CG
+    from groth_sahai_tpu_torch.models import kernels as MK
+    from groth_sahai_tpu_torch.models.prover import commit_and_prove
+    from groth_sahai_tpu_torch.models.verifier import verify
+    from groth_sahai_tpu_torch.ops.curve import G1, G2
+    from groth_sahai_tpu_torch.utils import serde as S
+    from groth_sahai_tpu_torch.utils.rng import GsRng
+    equ, _, X, Y, _ = ppe_334(device, mult1, mult2, rng, m=2, n=1)
+    B = EQUATIONS
+    t0 = time.perf_counter()
+    proofs = []
+    while len(proofs) < min(B, MIN_PROOFS) or (
+            len(proofs) < B and time.perf_counter() - t0 < PROOF_SECONDS):
+        proofs.append(commit_and_prove(equ, X, Y, crs,
+                                       GsRng(6 + len(proofs))))
+    sync()
+    made = time.perf_counter() - t0
+    n = len(proofs)
+    slots = [proofs[b % n] for b in range(B)]
+    bad = list(slots)
+    ep = slots[BAD_SLOT].equ_proofs[0]
+    bad[BAD_SLOT] = dataclasses.replace(slots[BAD_SLOT], equ_proofs=[
+        dataclasses.replace(ep, pi=proofs[(BAD_SLOT + 1) % n]
+                            .equ_proofs[0].pi)])
+    equs = [equ] * B
+    seen = {}
+
+    def run():
+        return (BT.verify_ppe_batch_randomized(equs, slots, crs, GsRng(9)),
+                BT.verify_ppe_batch_randomized(equs, bad, crs, GsRng(10)),
+                BT.verify_ppe_batch(equs, bad, crs))
+
+    real = BT._ratios
+
+    def spy(P, Q, mask):                  # the last batch's pairs and ratios
+        seen["pairs"], seen["ratio"] = (P, Q, mask), real(P, Q, mask)
+        return seen["ratio"]
+
+    BT._ratios = spy
+    try:
+        (good, with_bad, verdicts), counts, secs, peak = counted(run, shapes)
+    finally:
+        BT._ratios = real
+
+    t0 = time.perf_counter()
+    want = [b != BAD_SLOT for b in range(B)]
+    if good is not True or with_bad is not False or \
+            verdicts.tolist() != want:
+        raise AssertionError(
+            f"batch-verify-ppe-1024: randomized {good}, with slot {BAD_SLOT} "
+            f"changed {with_bad}; per-slot verdicts false at "
+            f"{[b for b in range(B) if not verdicts[b]]}")
+    sample = sorted({BAD_SLOT, 0, B - 1} | set(rng.sample(range(B), min(5, B))))
+    for b in sample:
+        if verify(equ, bad[b], crs) != bool(verdicts[b]):
+            raise AssertionError(f"batch-verify-ppe-1024: slot {b}'s verdict "
+                                 f"differs from verify of its proof alone")
+    (P, Q, mask), ratio = seen["pairs"], seen["ratio"]
+    for b in [BAD_SLOT, 0, B - 1, rng.randrange(B)]:
+        Pb = CG.aff_map(G1, P, lambda l: l[:, b, :, 0], lambda f: f[b, :, 0])
+        Qb = CG.aff_map(G2, Q, lambda l: l[:, :, b, 0], lambda f: f[b, 0])
+        one = MK.miller_product_signed(Pb, Qb, mask.cpu().numpy())
+        if not torch.equal(one, ratio[:, :, b]):
+            raise AssertionError(f"batch-verify-ppe-1024: slot {b}'s ratio "
+                                 f"differs from miller_product_signed")
+    wide = {k for k in shapes if k[0] in TOWER and k[2] > FUSED}
+    if wide:
+        raise AssertionError(f"batch-verify-ppe-1024: tower launches wider "
+                             f"than {FUSED} lanes: {sorted(wide)}")
+    for p in proofs[:8]:
+        blob = S.cproof_to_bytes(p)
+        back, off = S.cproof_from_bytes(blob, device=device)
+        if off != len(blob) or S.cproof_to_bytes(back) != blob or any(
+                to_ints(getattr(back, c).coms) != to_ints(getattr(p, c).coms)
+                or not torch.equal(getattr(back, c).rand, getattr(p, c).rand)
+                for c, to_ints in (("xcoms", g1_affine_to_ints),
+                                   ("ycoms", g2_affine_to_ints))):
+            raise AssertionError("batch-verify-ppe-1024: a proof does not "
+                                 "come back from its bytes")
+    blob = S.crs_to_bytes(crs)
+    back, off = S.crs_from_bytes(blob, device=device)
+    if off != len(blob) or S.crs_to_bytes(back) != blob or \
+            g1_affine_to_ints(back.u_base) != g1_affine_to_ints(crs.u_base) \
+            or g2_affine_to_ints(back.v_base) != g2_affine_to_ints(crs.v_base):
+        raise AssertionError("batch-verify-ppe-1024: the CRS does not come "
+                             "back from its bytes")
+    print(f"[batch-verify-ppe-1024] {B} slots over {n} distinct proofs "
+          f"({made:.1f} s to make): {secs:.3f} s for the three batches on the "
+          f"card, peak {peak:.2f} GiB; randomized True, False with slot "
+          f"{BAD_SLOT}'s pi changed; verdicts false only at {BAD_SLOT}; "
+          f"slots {sample} equal verify alone; four ratios equal "
+          f"miller_product_signed; 8 proofs and the CRS round-trip through "
+          f"their bytes", flush=True)
+    return counts, secs, time.perf_counter() - t0, run
+
+
+def curve_xs(g2: bool):
+    """(x, y) for x = 1, 2, ... (x = (k, 1) on G2): y a square root of
+    x^3 + b, or None where there is none (no point of the curve has x)."""
+    from groth_sahai_tpu_torch.ops import bls12_381 as C
+    from groth_sahai_tpu_torch.utils import serde as S
+    p, k = C.P, 0
+    while True:
+        k += 1
+        if g2:
+            x = (k, 1)
+            sq = ((k * k - 1) % p, 2 * k % p)
+            cube = ((sq[0] * k - sq[1]) % p, (sq[0] + sq[1] * k) % p)
+            yield x, S._sqrt_fq2(((cube[0] + C.B_G2[0]) % p,
+                                  (cube[1] + C.B_G2[1]) % p))
+        else:
+            yield k, S._sqrt_fq((pow(k, 3, p) + C.B_G1) % p)
+
+
+def off_curve_x(g2: bool):
+    return next(x for x, y in curve_xs(g2) if y is None)
+
+
+def outside_subgroup(g2: bool):
+    """The first point of `curve_xs` outside the r-torsion."""
+    from groth_sahai_tpu_torch.utils import hostmath
+    inside = hostmath.g2_in_subgroup if g2 else hostmath.g1_in_subgroup
+    return next((x, y) for x, y in curve_xs(g2)
+                if y is not None and not inside((x, y)))
+
+
+def run_msm_chunked(device, mult1, mult2, rng, shapes):
+    """msm-chunked-g1-262144: CHUNKED_POINTS points a_i G1 (a_i from
+    1..len(mult1), three at infinity) and seeded Fr scalars (edges 0, 1,
+    r - 1). The counted run: the points through `g1_vec_to_bytes_bulk`
+    (compressed) and back through `g1_vec_from_bytes_bulk_compressed`
+    (decompressed and validated on the card), the 8192 points of mult2 the
+    same way through the G2 codec, then `msm_chunked` in chunks of CHUNK
+    with checkpoints in a temporary directory, partial 2 deleted, and
+    `msm_chunked` again (three partials read back and validated, one
+    chunk recomputed); the directory removed. Checked: the points read
+    back equal the points written, both MSMs equal (sum s_i a_i) G1 on the
+    host, the counters (4 chunks, then 3 resumed and 65536 points); the
+    G1 and G2 readers refuse the batch with one point outside the
+    r-torsion and with one x off the curve."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from groth_sahai_tpu_torch.ops import bls12_381 as C
+    from groth_sahai_tpu_torch.ops.curve import (G1, g1_affine_from_ints,
+                                                 g1_affine_to_ints,
+                                                 g2_affine_from_ints)
+    from groth_sahai_tpu_torch.ops.fp import FQ, FR
+    from groth_sahai_tpu_torch.ops.limbs import ints_to_limbs
+    from groth_sahai_tpu_torch.ops.msm_chunked import msm_chunked
+    from groth_sahai_tpu_torch.utils import hostcrypto as H
+    from groth_sahai_tpu_torch.utils import metrics, serde as S
+    n = CHUNKED_POINTS
+    gen = np.random.default_rng(rng.getrandbits(32))
+    a = gen.integers(1, len(mult1) + 1, size=n)
+    a[[11, n // 3, n - 1]] = 0
+    base = g1_affine_from_ints(mult1, device=device)
+    idx = torch.as_tensor(np.maximum(a - 1, 0), device=device)
+    inf = torch.as_tensor(a == 0, device=device)
+    pts = tuple(torch.where(inf, 0, c[:, idx]) for c in base[:2]) + (inf,)
+    limbs = gen.integers(0, 1 << 16, size=(FR.n, n), dtype=np.int64)
+    limbs[FR.n - 2] &= (1 << 14) - 1                 # scalars < 2^254 < r
+    limbs[FR.n - 1] = 0
+    limbs[:, :3] = ints_to_limbs([0, 1, C.R - 1], FR.n)
+    s = torch.as_tensor(limbs, device=device)
+    q = g2_affine_from_ints(mult2, device=device)
+    sync()
+
+    def run():
+        back1, _ = S.g1_vec_from_bytes_bulk_compressed(
+            S.g1_vec_to_bytes_bulk(pts, compressed=True), device=device)
+        back2, _ = S.g2_vec_from_bytes_bulk_compressed(
+            S.g2_vec_to_bytes_bulk(q, compressed=True), device=device)
+        ckpt = tempfile.mkdtemp(prefix="msm_chunked_")
+        try:
+            metrics.reset()
+            first = msm_chunked(G1, pts, s, chunk_size=CHUNK, ckpt_dir=ckpt)
+            m1 = metrics.snapshot()
+            os.remove(os.path.join(ckpt, "msm_partial_000002.bin"))
+            metrics.reset()
+            again = msm_chunked(G1, pts, s, chunk_size=CHUNK, ckpt_dir=ckpt)
+            m2 = metrics.snapshot()
+            metrics.reset()
+        finally:
+            shutil.rmtree(ckpt)
+        return back1, back2, first, again, m1, m2
+
+    (back1, back2, first, again, m1, m2), counts, secs, peak = counted(
+        run, shapes)
+    t0 = time.perf_counter()
+    std = lambda aff: [FQ.from_mont(aff[0]), FQ.from_mont(aff[1]), aff[2]]
+    for what, got, want in (("G1", back1, pts), ("G2", back2, q)):
+        if not all(torch.equal(x, y) for x, y in zip(std(got), std(want))):
+            raise AssertionError(f"msm-chunked-g1-262144: the {what} points "
+                                 f"read back differ from those written")
+    total = sum(int(limbs[l] @ a) << (16 * l) for l in range(FR.n)) % C.R
+    host = H.g1_mul((C.G1_GEN_X, C.G1_GEN_Y), total)
+    for what, out in (("first", first), ("resumed", again)):
+        if g1_affine_to_ints(G1.to_affine(tuple(c[..., None]
+                                                for c in out))) != [host]:
+            raise AssertionError(f"msm-chunked-g1-262144: the {what} run "
+                                 f"differs from the host")
+    got_counts = (m1.get("count/msm_chunks_resumed", 0),
+                  m1.get("count/msm_points"), m2.get("count/msm_chunks_resumed"),
+                  m2.get("count/msm_points"))
+    if got_counts != (0, n, 3, CHUNK):
+        raise AssertionError(f"msm-chunked-g1-262144: counters (resumed, "
+                             f"points) first, then again: {got_counts}")
+    refused = []
+    for g2, pts_w, size in ((False, pts, 48), (True, q, 96)):
+        write = S.g2_vec_to_bytes_bulk if g2 else S.g1_vec_to_bytes_bulk
+        read = (S.g2_vec_from_bytes_bulk_compressed if g2
+                else S.g1_vec_from_bytes_bulk_compressed)
+        blob = bytearray(write(pts_w, compressed=True))
+        lane = 8 + size * (77 % pts_w[2].shape[0])
+        x = off_curve_x(g2)
+        cases = (("subgroup", (S.g2_point_to_bytes if g2 else
+                               S.g1_point_to_bytes)(outside_subgroup(g2))),
+                 ("not on curve", (S.fq_to_bytes(x[0]) + S.fq_to_bytes(x[1])
+                                   if g2 else S.fq_to_bytes(x))))
+        for match, point in cases:
+            bad = bytearray(blob)
+            bad[lane:lane + size] = point
+            try:
+                read(bytes(bad), device=device)
+            except ValueError as exc:
+                if match not in str(exc):
+                    raise
+                refused.append(f"{'G2' if g2 else 'G1'} {match}")
+                continue
+            raise AssertionError(f"msm-chunked-g1-262144: a batch with a "
+                                 f"point {match} was read")
+    print(f"[msm-chunked-g1-262144] {n} G1 and {q[2].shape[0]} G2 points "
+          f"through the bulk codec, then {n} points in chunks of {CHUNK}, "
+          f"resumed: {secs:.3f} s on the card, peak {peak:.2f} GiB; points "
+          f"read back equal; both MSMs match (sum s_i a_i) G1 on the host; "
+          f"3 partials resumed, one chunk recomputed; refused: "
+          f"{', '.join(refused)}", flush=True)
+    return counts, secs, time.perf_counter() - t0, run
+
+
 def run_msm_paths(device, crs, keys, mult1, mult2, rng, phases, by_path,
                   shapes, runs):
     """Phase 3, the MSM paths and the Miller steps (see run_paths)."""
@@ -1696,6 +2001,10 @@ def run_msm_paths(device, crs, keys, mult1, mult2, rng, phases, by_path,
                                           shapes["verify-ppe-334"]))
     keep("miller-steps-4096", run_miller_steps(device, mult2, rng,
                                                shapes["miller-steps-4096"]))
+    keep("batch-verify-ppe-1024", run_batch_verify(
+        device, crs, mult1, mult2, rng, shapes["batch-verify-ppe-1024"]))
+    keep("msm-chunked-g1-262144", run_msm_chunked(
+        device, mult1, mult2, rng, shapes["msm-chunked-g1-262144"]))
 
 
 def run_gs_paths(device, mult1, mult2, rng, phases, by_path, shapes, runs):

@@ -114,10 +114,11 @@ def iota_prime_base(curve, key_vec, gen):
 
 
 def iota_prime(curve, base_elem, scalars_std):
-    """iota'(x) = x * (u2 + (O, g)): scalars (17, m) -> Com batch (2, m)."""
-    m = scalars_std.shape[-1]
-    b = aff_bcast(curve, base_elem, (m,))        # (2, m)
-    return curve.scalar_mul(b, scalars_std[:, None, :])   # Jacobian (2, m)
+    """iota'(x) = x * (u2 + (O, g)): scalars (17, *L, m) -> Com batch
+    (2, *L, m) (*L: leading batch axes, e.g. the batch verifier's
+    equations)."""
+    b = aff_bcast(curve, base_elem, tuple(scalars_std.shape[1:]))  # (2, *L, m)
+    return curve.scalar_mul(b, scalars_std[:, None])   # Jacobian (2, *L, m)
 
 
 # ---------------------------------------------------------------------------
@@ -127,20 +128,23 @@ def iota_prime(curve, base_elem, scalars_std):
 def com_matvec(curve, scal_std, com_vec):
     """(I, K) Fr matrix x Com vector (2, K) -> Com vector (2, I), Jacobian.
 
-    scal_std: int64[17, I, K] standard-form scalars. For K < 16 (the
-    reference's small-K branch): one batched windowed scalar-mul over
-    (2, I, K) plus a tree reduction over K. For K >= 16 (the verifier's
-    Gamma d at m = n = 334 is 2 x 334 MSMs of 512 padded points): one
-    Pippenger MSM call over the (2, I) batch of MSMs of K points (the
-    reference maps `msm` over it with vmap), window 4 below K = 512, else 8.
+    scal_std: int64[17, *L, I, K] standard-form scalars, com_vec (2, *L, K):
+    *L are leading batch axes (the batch verifier's equations), one
+    product each. For K < 16 (the reference's small-K branch): one batched
+    windowed scalar-mul over (2, *L, I, K) plus a tree reduction over K.
+    For K >= 16 (the verifier's Gamma d at m = n = 334 is 2 x 334 MSMs of
+    512 padded points): one Pippenger MSM call over the (2, *L, I) batch of
+    MSMs of K points (the reference maps `msm` over it with vmap), window
+    4 below K = 512, else 8.
     """
-    I, K = scal_std.shape[1], scal_std.shape[2]
-    pts = aff_expand(curve, com_vec, 1, I)       # (2, I, K)
+    I, K = scal_std.shape[-2], scal_std.shape[-1]
+    lead = scal_std.ndim - 3
+    pts = aff_expand(curve, com_vec, 1 + lead, I)    # (2, *L, I, K)
     if K >= 16:
         return msm_mod.msm(curve, pts, scal_std,
-                           window=4 if K < 512 else 8)           # (2, I)
-    prods = curve.scalar_mul(pts, scal_std[:, None, :, :])   # Jacobian
-    return curve.sum_reduce(prods, axis=2)       # Jacobian (2, I)
+                           window=4 if K < 512 else 8)           # (2, *L, I)
+    prods = curve.scalar_mul(pts, scal_std[:, None])   # Jacobian
+    return curve.sum_reduce(prods, axis=2 + lead)    # Jacobian (2, *L, I)
 
 
 def com_collapse(curve, scal_std, com_vec):

@@ -73,11 +73,11 @@ def pad_scal(s, axis: int, to: int):
 
 
 def com_matvec(curve, scal_std, com_vec):
-    """Padded (I, K) x Com(2, K) -> Jacobian Com(2, I)."""
-    K = scal_std.shape[2]
+    """Padded (*L, I, K) x Com(2, *L, K) -> Jacobian Com(2, *L, I)."""
+    K = scal_std.shape[-1]
     Kp = next_pow2(K)
-    return cg.com_matvec(curve, pad_scal(scal_std, 2, Kp),
-                         pad_aff(curve, com_vec, 1, Kp))
+    return cg.com_matvec(curve, pad_scal(scal_std, scal_std.ndim - 1, Kp),
+                         pad_aff(curve, com_vec, com_vec[2].ndim - 1, Kp))
 
 
 def to_affine(curve, jac):
@@ -93,11 +93,13 @@ def scalar_mul(curve, pts, scal):
 
 
 def iota_prime(curve, base_elem, scalars_std, m: int | None = None):
-    """iota'(x), padded to pow2 and sliced back to m."""
+    """iota'(x) of scalars (17, *L, m), padded to pow2 and sliced back to
+    m: Jacobian Com (2, *L, m)."""
     m = scalars_std.shape[-1] if m is None else m
     out = cg.iota_prime(curve, base_elem,
-                        pad_scal(scalars_std, 1, next_pow2(m)))
-    return tuple(l.narrow(curve.ns + 1, 0, m) for l in out)
+                        pad_scal(scalars_std, scalars_std.ndim - 1,
+                                 next_pow2(m)))
+    return tuple(l.narrow(l.ndim - 1, 0, m) for l in out)
 
 
 def scalar_mul_vec(curve, pts, scal_vec):

@@ -33,14 +33,15 @@ from .prover import CProof, _iota_side, check_dims, vec_len
 
 
 def _comt_ppe_target(t_gt):
-    """iota_T(t) for a PPE: entries (1, 1, 1, t) as (nl, 12, 2, 2).
+    """iota_T(t) for a PPE: entries (1, 1, 1, t) as (nl, 12, *L, 2, 2).
 
-    t_gt: a GT element (nl, 12), on the device the result takes.
+    t_gt: GT elements (nl, 12, *L) (*L = () for one equation), on the
+    device the result takes.
     """
-    one = FQ12.one((), device=t_gt.device)
-    row0 = torch.stack([one, one], -1)             # (nl, 12, 2)
+    one = FQ12.one(tuple(t_gt.shape[2:]), device=t_gt.device)
+    row0 = torch.stack([one, one], -1)             # (nl, 12, *L, 2)
     row1 = torch.stack([one, t_gt], -1)
-    return torch.stack([row0, row1], -2)           # (nl, 12, 2, 2)
+    return torch.stack([row0, row1], -2)           # (nl, 12, *L, 2, 2)
 
 
 def _as_vec1(curve, elem):
@@ -50,19 +51,29 @@ def _as_vec1(curve, elem):
 
 
 def _target_pair(equ, crs: CRS):
-    """Express iota_T(target) as a single (Com1, Com2) pairing pair."""
+    """Express iota_T(target) as a single (Com1, Com2) pairing pair: Com
+    elements (2, *L) for targets with leading batch axes *L (the batch
+    verifier's equations; *L = () for one equation)."""
     ty = equ.equ_type
     if ty == EquType.MultiScalarG1:
-        c1 = cg.iota(G1, _as_vec1(G1, equ.target))
-        return (cg.aff_index(G1, c1, 1, 0), crs.v_base)
+        c1 = cg.iota(G1, _as_vec1(G1, equ.target))          # (2, *L, 1)
+        lead = tuple(equ.target[2].shape)
+        return (cg.aff_index(G1, c1, len(lead) + 1, 0),
+                cg.aff_bcast(G2, crs.v_base, lead))
     if ty == EquType.MultiScalarG2:
         c2 = cg.iota(G2, _as_vec1(G2, equ.target))
-        return (crs.u_base, cg.aff_index(G2, c2, 1, 0))
+        lead = tuple(equ.target[2].shape)
+        return (cg.aff_bcast(G1, crs.u_base, lead),
+                cg.aff_index(G2, c2, len(lead) + 1, 0))
     if ty == EquType.Quadratic:
+        lead = tuple(equ.target.shape[1:])
+        t = equ.target.reshape(equ.target.shape[0], -1)      # (17, prod L)
         vb = K.to_affine(
-            G2, K.scalar_mul_vec(G2, _as_vec1(G2, crs.v_base),
-                                 equ.target[:, None]))
-        return (crs.u_base, cg.aff_index(G2, vb, 1, 0))
+            G2, K.scalar_mul_vec(G2, cg.aff_bcast(G2, crs.v_base,
+                                                  (t.shape[1],)), t))
+        vb = cg.aff_map(G2, vb, lambda l: l.reshape(l.shape[:3] + lead),
+                        lambda i: i.reshape(i.shape[:1] + lead))
+        return (cg.aff_bcast(G1, crs.u_base, lead), vb)
     raise ValueError(ty)
 
 
@@ -72,6 +83,20 @@ def verify(equ, com_proof: CProof, crs: CRS) -> bool:
     The statement must fit the commitments: A has as many entries as d, B
     as c (the original's dimension asserts), and Gamma is m x n.
     """
+    P, Q, mask = _pairs(equ, com_proof, crs)
+    f = K.miller_product_signed(P, Q, mask)
+    res = K.final_exp(f)
+
+    dev = res.device
+    expected = (_comt_ppe_target(equ.target)
+                if equ.equ_type == EquType.PairingProduct
+                else cg.comt_one(device=dev))
+    return bool(cg.comt_eq(res, expected).item())
+
+
+def _pairs(equ, com_proof: CProof, crs: CRS):
+    """The signed Miller product's pairs of one equation: Com1 and Com2
+    vectors (2, K) and the rhs conjugation mask, numpy bool (K,)."""
     if len(com_proof.equ_proofs) != 1:
         raise ValueError("verify takes a proof of exactly one equation")
     proof = com_proof.equ_proofs[0]
@@ -106,12 +131,4 @@ def verify(equ, com_proof: CProof, crs: CRS) -> bool:
     Q = cg.aff_concat(G2, lhs2 + rhs2, axis=1)
     k_l = sum(int(v[2].shape[-1]) for v in lhs1)
     k_r = sum(int(v[2].shape[-1]) for v in rhs1)
-    mask = np.array([False] * k_l + [True] * k_r)
-
-    f = K.miller_product_signed(P, Q, mask)
-    res = K.final_exp(f)
-
-    dev = res.device
-    expected = (_comt_ppe_target(equ.target) if is_ppe
-                else cg.comt_one(device=dev))
-    return bool(cg.comt_eq(res, expected).item())
+    return P, Q, np.array([False] * k_l + [True] * k_r)

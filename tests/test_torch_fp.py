@@ -243,6 +243,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import groth_sahai_tpu_torch.models.crs, groth_sahai_tpu_torch.utils.rng\n"
         "import groth_sahai_tpu_torch.ops.msm, groth_sahai_tpu_torch.models.commit_group\n"
         "import groth_sahai_tpu_torch.utils.curve_variants\n"
+        "import groth_sahai_tpu_torch.models.batch, groth_sahai_tpu_torch.utils.metrics\n"
+        "import groth_sahai_tpu_torch.utils.serde, groth_sahai_tpu_torch.utils.native\n"
+        "import groth_sahai_tpu_torch.ops.msm_chunked\n"
         "import chip_smoke\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and (\n"
         "       m == 'groth_sahai_tpu' or m.startswith('groth_sahai_tpu.')\n"
