@@ -50,8 +50,8 @@ Phases (any failure exits non-zero and prints no result line):
                 infinity, the affine point at infinity, P + P, P + (-P),
                 coordinates at 4p - 1 and 2p - 1; a scan column that is all
                 infinity);
-  3. paths   -- eighteen runs through the port's entry points, each against the
-                host oracle:
+  3. paths   -- twenty-four runs through the port's entry points, each against
+                the host oracle:
                 pairing-8192: `pairing(P, Q)` over 8192 pairs (P_i = a_i G1,
                   Q_i = b_i G2, a few infinity lanes); sampled lanes and the
                   GT product of all lanes against e(G1, G2)^(sum a_i b_i);
@@ -112,6 +112,27 @@ Phases (any failure exits non-zero and prints no result line):
                   checkpoints, one partial deleted and the run resumed,
                   against (sum s_i a_i) G1 on the host; a point outside the
                   r-torsion and an x off the curve refused;
+                matrix-334: the Mat / B1 / B2 / BT parity API
+                  (models/matrix.py) at make_ppe(334, 334)'s width:
+                  com_left_mul of a 334 x 334 Fr matrix by a Com1 vector
+                  (223,112 G1 scalar_mul lanes), com_right_mul of a Com2
+                  vector by its transpose, comt_pairing_sum of the two and
+                  the BT ops; every Com entry against the host, the GT
+                  laws on the card;
+                sharded-msm-x4: sharded_msm over a mesh of four shards on
+                  the one card: msm-g1-65536's inputs (equal to its
+                  result) and 4 x 4096 G2 points (against the host);
+                sharded-pairing-4096-x4: sharded_multi_pairing of 4096
+                  pairs in four shards against e(G1, G2)^(sum a_i b_i);
+                batch-verify-ppe-1024-x4: batch-verify-ppe-1024's three
+                  batches over four shards, the same verdicts;
+                nccl-1rank: init_distributed with one NCCL rank,
+                  make_global_mesh, sharded_msm and sharded_multi_pairing
+                  through the all_gather merge, equal to the unsharded
+                  results;
+                trace: profiling.trace over a verify of
+                  prove-verify-ppe-8x8's proof; the trace file holds CUDA
+                  kernel events of the ported kernels;
                 each counted run records the shape (and exponent) of every
                 launch, and every kernel is then held bit-exact, with
                 inputs made as in phase 2, at each recorded shape that
@@ -241,6 +262,23 @@ PATH_KERNELS = {
     # the bulk codec (decompression on pow_const and the Jacobian glue,
     # validation on scalar_mul by r) and the chunked MSM
     "msm-chunked-g1-262144": (MSM_KERNELS + CURVE + FIELD, TOWER),
+    # the parity API: two scalar_mul (G1, G2), Jacobian sums, to_affine,
+    # one fused Miller loop, final_exp, GT inverse and one gt_exp
+    "matrix-334": (CURVE + FIELD + ("fq12_mul", "cyc_pow", "f12_pow_dyn")
+                   + MILLER, ("cyc_sqr",)),
+    # one batched msm a curve; the merges are Jacobian glue
+    "sharded-msm-x4": (MSM_KERNELS + ("cdbl_n_add",) + G2_GLUE,
+                       TOWER + ("cmadd", "pow_const")),
+    "sharded-pairing-4096-x4": (FIELD + ("fq12_mul", "cyc_pow") + MILLER,
+                                ("cyc_sqr", "f12_pow_dyn") + CURVE),
+    "batch-verify-ppe-1024-x4": (FIELD + CURVE + MILLER
+                                 + ("fq12_mul", "cyc_pow", "f12_pow_dyn"),
+                                 ("cyc_sqr",)),
+    "nccl-1rank": (MSM_KERNELS + ("cdbl_n_add",) + FIELD + MILLER
+                   + ("fq12_mul", "cyc_pow"),
+                   ("cmadd", "cyc_sqr", "f12_pow_dyn")),
+    "trace": (FIELD + CURVE + MILLER + ("fq12_mul", "cyc_pow"),
+              ("cyc_sqr", "f12_pow_dyn")),
 }
 # No path but the MSM paths runs the MSM; no path but miller-steps-4096
 # runs the Miller step entry points (no caller in either package).
@@ -269,6 +307,9 @@ MIN_PROOFS = 64          # distinct proofs of batch-verify-ppe-1024, at least,
 PROOF_SECONDS = 45.0     # and as many more as this much card time makes
 CHUNKED_POINTS = 262144  # G1 points of msm-chunked-g1-262144
 CHUNK = 65536            # its chunk size: four chunks
+MATRIX_SIDE = 334        # matrix-334: Gamma's side, the Com vectors' length
+SHARDS = 4               # shards of the virtual mesh, all on the one card
+G2_SHARD_POINTS = 4096   # sharded-msm-x4's G2 points a shard
 
 
 def e2e_scalar_muls(x_scalar: bool, y_scalar: bool, quad: bool,
@@ -328,6 +369,23 @@ EXACT["miller-steps-4096", "miller_add_step"] = 5
 EXACT["batch-verify-ppe-1024", "miller_iter_dbl"] = 3 * BATCH_TILES * 63
 EXACT["batch-verify-ppe-1024", "miller_iter_add"] = 3 * BATCH_TILES * 5
 EXACT["batch-verify-ppe-1024", "f12_pow_dyn"] = 2 * 2
+# matrix-334: two scalar_mul, one Miller loop, one gt_exp. The sharded
+# pairings: one Miller loop a device. batch-verify-ppe-1024-x4: per batch
+# each of the SHARDS groups runs its Gamma d scalar_mul and its tiles (as
+# many in all as unsharded), each randomized group two gt_exp. trace: one
+# verify of prove-verify-ppe-8x8.
+for _path, _calls in (("matrix-334", 2), ("batch-verify-ppe-1024-x4",
+                                          3 * SHARDS), ("trace", 1)):
+    for _name, _per in SCALAR_MUL_LAUNCHES.items():
+        EXACT[_path, _name] = _calls * _per
+for _path, _loops in (("matrix-334", 1), ("sharded-pairing-4096-x4", 1),
+                      ("batch-verify-ppe-1024-x4", 3 * SHARDS * -(
+                          -(EQUATIONS // SHARDS) // (FUSED // (4 * 16)))),
+                      ("nccl-1rank", 1), ("trace", 1)):
+    EXACT[_path, "miller_iter_dbl"] = 63 * _loops
+    EXACT[_path, "miller_iter_add"] = 5 * _loops
+EXACT["matrix-334", "f12_pow_dyn"] = 1
+EXACT["batch-verify-ppe-1024-x4", "f12_pow_dyn"] = 2 * SHARDS * 2
 
 
 def msm_geometry(n_points: int, window: int = 0):
@@ -364,7 +422,10 @@ def msm_launches(n_points: int, window: int = 0) -> dict:
 
 
 def msm_calls() -> dict:
-    """path -> the (points, window) of each msm call it makes."""
+    """path -> the (points, window) of each msm call it makes: points
+    of one MSM of the call's batch (a sharded msm is one call over a batch
+    of SHARDS MSMs a device; `msm_launches` counts one call, whatever its
+    batch: each launch covers every MSM's lanes)."""
     from groth_sahai_tpu_torch.models.kernels import next_pow2
     kp = next_pow2(PPE_M)
     return {"msm-g1-65536": [(MSM_POINTS, 0)],
@@ -372,7 +433,10 @@ def msm_calls() -> dict:
             "verify-ppe-334": [(kp, ppe_window(PPE_M))] * VERIFIES[
                 "verify-ppe-334"],
             # four chunks, then one recomputed after a partial is deleted
-            "msm-chunked-g1-262144": [(CHUNK, 0)] * 5}
+            "msm-chunked-g1-262144": [(CHUNK, 0)] * 5,
+            "sharded-msm-x4": [(MSM_POINTS // SHARDS, 13),
+                               (G2_SHARD_POINTS, 8)],
+            "nccl-1rank": [(MSM_POINTS // SHARDS, 13)]}
 
 
 def exact_counts() -> dict:
@@ -1408,7 +1472,9 @@ def run_ppe_8x8(device, rng, shapes):
     discrete logs (X_i = x_i p1, Y_j = y_j p2, A_j, B_i likewise, random
     Gamma), target gt^(sum x_i b_i + sum a_j y_j + sum Gamma_ij x_i y_j);
     commit_and_prove, verify (must hold), then verify with pi's first
-    element replaced by p2 (must fail)."""
+    element replaced by p2 (must fail). Returns (counts, seconds, 0,
+    the run, (statement, honest proof, CRS))."""
+    import dataclasses
     from groth_sahai_tpu_torch.ops import bls12_381 as C
     from groth_sahai_tpu_torch.ops.curve import (g1_affine_from_ints,
                                                  g1_affine_to_ints,
@@ -1442,16 +1508,18 @@ def run_ppe_8x8(device, rng, shapes):
                                     device=device)[:, :, 0])
     X, Y = G1s(x), G2s(y)
     sync()
+    made = {}
 
     def run():
         proof = commit_and_prove(equ, X, Y, crs, GsRng(SEED + 31))
         good = verify(equ, proof, crs)
-        pi = proof.equ_proofs[0].pi
-        bad_pi = tuple(c.clone() for c in pi)
+        ep = proof.equ_proofs[0]
+        bad_pi = tuple(c.clone() for c in ep.pi)
         for c in range(3):                   # pi[0][0] <- p2 = crs.v[0][0]
             bad_pi[c][..., 0, 0] = crs.v[c][..., 0, 0]
-        proof.equ_proofs[0].pi = bad_pi
-        return good, verify(equ, proof, crs)
+        made["proof"] = proof
+        return good, verify(equ, dataclasses.replace(proof, equ_proofs=[
+            dataclasses.replace(ep, pi=bad_pi)]), crs)
 
     (good, bad), counts, secs, peak = counted(run, shapes)
     if not good or bad:
@@ -1460,7 +1528,7 @@ def run_ppe_8x8(device, rng, shapes):
     print(f"[prove-verify-ppe-8x8] m = n = {m} (K = {n + 2 * m + 4} Miller "
           f"pairs): {secs:.3f} s, peak {peak:.2f} GiB; verifies, and fails "
           f"with pi changed", flush=True)
-    return counts, secs, 0.0, run
+    return counts, secs, 0.0, run, (equ, made["proof"], crs)
 
 
 # ---------------------------------------------------- phase 3: MSM paths
@@ -1500,7 +1568,7 @@ def run_msm_g1(device, mult1, rng, shapes):
     print(f"[msm-g1-65536] {n} points, window {window}, {width} lanes x "
           f"{rows} rows: {secs:.3f} s on the card, peak {peak:.2f} GiB; "
           f"matches (sum s_i a_i) G1 on the host", flush=True)
-    return counts, secs, time.perf_counter() - t0, run
+    return counts, secs, time.perf_counter() - t0, run, (pts, s, got[0])
 
 
 def ppe_334(device, mult1, mult2, rng, m=PPE_M, n=PPE_M):
@@ -1733,7 +1801,9 @@ def run_batch_verify(device, crs, mult1, mult2, rng, shapes):
     alone, four of the last batch's ratios limb for limb against
     `miller_product_signed` of the batch's pairs of that slot, every
     tower launch at most FUSED lanes wide, and eight proofs and the CRS
-    through the wire format (validated) and back."""
+    through the wire format (validated) and back. Returns (counts,
+    seconds, checks seconds, the run, (equations, slots, slots with
+    BAD_SLOT changed, CRS, the three results))."""
     import dataclasses
     import torch
     from groth_sahai_tpu_torch.ops.curve import (g1_affine_to_ints,
@@ -1832,7 +1902,8 @@ def run_batch_verify(device, crs, mult1, mult2, rng, shapes):
           f"slots {sample} equal verify alone; four ratios equal "
           f"miller_product_signed; 8 proofs and the CRS round-trip through "
           f"their bytes", flush=True)
-    return counts, secs, time.perf_counter() - t0, run
+    return counts, secs, time.perf_counter() - t0, run, (
+        equs, slots, bad, crs, (good, with_bad, verdicts))
 
 
 def curve_xs(g2: bool):
@@ -1982,16 +2053,367 @@ def run_msm_chunked(device, mult1, mult2, rng, shapes):
     return counts, secs, time.perf_counter() - t0, run
 
 
-def run_msm_paths(device, crs, keys, mult1, mult2, rng, phases, by_path,
-                  shapes, runs):
-    """Phase 3, the MSM paths and the Miller steps (see run_paths)."""
+def keeper(by_path, phases, runs):
+    """keep(path, result): file a path's (counts, seconds, checks seconds,
+    the run) and return the rest of its result."""
     def keep(path, out):
         by_path[path], phases[path], phases[path + "_checks"], runs[path] = \
             out[:4]
         return out[4:]
+    return keep
 
-    keep("msm-g1-65536", run_msm_g1(device, mult1, rng,
-                                    shapes["msm-g1-65536"]))
+
+# ----------------------------------------------- phase 3: the parallel layer
+
+def fixed_base_muls(g2: bool, base, ks):
+    """[k base for k in ks] (affine ints, None for infinity) on the host by
+    a 4-bit comb: a table of d 16^j base (j < 64, d < 16), then one mixed
+    addition a nonzero digit: ~5x fewer operations than double-and-add."""
+    from groth_sahai_tpu_torch.ops import bls12_381 as C
+    from groth_sahai_tpu_torch.utils import hostcrypto as H
+    from groth_sahai_tpu_torch.utils import hostmath as HM
+    ops = HM._OPS2 if g2 else HM._OPS1
+    add = H.g2_add if g2 else H.g1_add
+    to_affine = H._jac_to_affine2 if g2 else H._jac_to_affine1
+    table, step = [], base
+    for _ in range(64):
+        row = [None, step]
+        for _ in range(14):
+            row.append(add(row[-1], step))
+        table.append(row)
+        step = add(row[-1], step)                      # 16 step
+    out = []
+    for k in ks:
+        k %= C.R
+        acc = (ops.one, ops.one, ops.zero)
+        for j in range(64):
+            d = (k >> (4 * j)) & 15
+            if d:
+                acc = HM._add_mixed(ops, acc, table[j][d])
+        out.append(to_affine(acc))
+    return out
+
+
+def run_matrix(device, mult1, mult2, rng, shapes):
+    """matrix-334: the Mat / B1 / B2 / BT parity API (models/matrix.py) at
+    the width of make_ppe(334, 334): `com_left_mul` of a seeded
+    MATRIX_SIDE x MATRIX_SIDE Fr matrix Gamma by a Com1 vector of
+    MATRIX_SIDE entries (batch (MATRIX_SIDE, 2): 223,112 scalar_mul lanes)
+    on G1, `com_right_mul` of a Com2 vector (2, MATRIX_SIDE) by Gamma^T on
+    G2, `comt_pairing_sum` of the two, then `comt_scalar_mul` by 2,
+    `comt_add`, `comt_neg`, `comt_sub` and `comt_sum` on it. Every Com
+    entry against c G on the host, c = Gamma a mod r over the inputs'
+    discrete logs (drawn from 0..len(mult); 0 is infinity); each entry of
+    the pairing sum against e(G1, G2)^(sum_j c1 c2); the GT laws 2 a =
+    a + a, a + (-a) = 1, a - a = 1, a + a + (-a) = a on the card."""
+    from groth_sahai_tpu_torch.models import matrix as M
+    from groth_sahai_tpu_torch.ops import bls12_381 as C
+    from groth_sahai_tpu_torch.ops.curve import (G1, G2, g1_affine_from_ints,
+                                                 g1_affine_to_ints,
+                                                 g2_affine_from_ints,
+                                                 g2_affine_to_ints)
+    from groth_sahai_tpu_torch.ops.fp import FR
+    from groth_sahai_tpu_torch.ops.tower import FQ12
+    n = MATRIX_SIDE
+    gam = [[rng.randrange(C.R) for _ in range(n)] for _ in range(n)]
+    a = [[rng.randrange(len(mult1) + 1) for _ in range(2)] for _ in range(n)]
+    b = [[rng.randrange(len(mult2) + 1) for _ in range(n)] for _ in range(2)]
+    a[n // 2][0] = b[1][n // 3] = 0                    # infinity entries
+    G = fr_limbs(sum(gam, []), device).reshape(FR.n, n, n)
+    x, y, inf = g1_affine_from_ints([mult1[k - 1] if k else None
+                                     for row in a for k in row], device)
+    com1 = (x.reshape(-1, n, 2), y.reshape(-1, n, 2), inf.reshape(n, 2))
+    x, y, inf = g2_affine_from_ints([mult2[k - 1] if k else None
+                                     for row in b for k in row], device)
+    com2 = (x.reshape(-1, 2, 2, n), y.reshape(-1, 2, 2, n),
+            inf.reshape(2, n))
+    two = fr_limbs([2], device)[:, 0]
+    sync()
+
+    def run():
+        left = M.com_left_mul(G1, G, com1)                      # (n, 2)
+        right = M.com_right_mul(G2, com2, M.fr_mat_transpose(G))  # (2, n)
+        t = M.comt_pairing_sum(M.com_transpose(G1, left), right)
+        neg = M.comt_neg(t)
+        return left, right, t, (M.comt_scalar_mul(two, t), M.comt_add(t, t),
+                                M.comt_add(t, neg), M.comt_sub(t, t),
+                                M.comt_sum([t, t, neg]))
+
+    (left, right, t, laws), counts, secs, peak = counted(run, shapes)
+    t0 = time.perf_counter()
+    c1 = [[sum(gam[j][k] * a[k][i] for k in range(n)) % C.R
+           for i in range(2)] for j in range(n)]            # left[j][i]
+    c2 = [[sum(gam[j][k] * b[i][k] for k in range(n)) % C.R
+           for j in range(n)] for i in range(2)]            # right[i][j]
+    g1 = (C.G1_GEN_X, C.G1_GEN_Y)
+    g2 = (C.G2_GEN_X, C.G2_GEN_Y)
+    if g1_affine_to_ints(left) != fixed_base_muls(False, g1, sum(c1, [])):
+        raise AssertionError("matrix-334: com_left_mul differs from the host")
+    if g2_affine_to_ints(right) != fixed_base_muls(True, g2, sum(c2, [])):
+        raise AssertionError("matrix-334: com_right_mul differs from the "
+                             "host")
+    want = [gt_power(sum(c1[j][i] * c2[i2][j] for j in range(n)))
+            for i in range(2) for i2 in range(2)]
+    if FQ12.to_ints(t.reshape(t.shape[:2] + (4,))) != want:
+        raise AssertionError("matrix-334: comt_pairing_sum differs from the "
+                             "host")
+    one = FQ12.one((2, 2), device=device)
+    for name, got, exp in (("2 a = a + a", laws[0], laws[1]),
+                           ("a + (-a) = 1", laws[2], one),
+                           ("a - a = 1", laws[3], one),
+                           ("a + a + (-a) = a", laws[4], t)):
+        if not bool(FQ12.eq(got, exp).all()):
+            raise AssertionError(f"matrix-334: {name} fails")
+    print(f"[matrix-334] Gamma {n} x {n}: com_left_mul over {2 * n * n} G1 "
+          f"lanes, com_right_mul over {2 * n * n} G2 lanes, "
+          f"comt_pairing_sum of {n} pairs and the BT ops: {secs:.3f} s on "
+          f"the card, peak {peak:.2f} GiB; {4 * n} Com entries and the "
+          f"pairing sum match the host; the GT laws hold", flush=True)
+    return counts, secs, time.perf_counter() - t0, run
+
+
+def virtual_mesh(device):
+    """SHARDS shards on one card: the counterpart of the JAX package's
+    virtual CPU mesh."""
+    from groth_sahai_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(SHARDS, devices=[device] * SHARDS)
+
+
+def jac_ints(curve, jac):
+    """One Jacobian point -> affine ints on the host."""
+    from groth_sahai_tpu_torch.ops.curve import (g1_affine_to_ints,
+                                                 g2_affine_to_ints)
+    to_ints = g2_affine_to_ints if curve.ns == 2 else g1_affine_to_ints
+    return to_ints(curve.to_affine(tuple(c[..., None] for c in jac)))[0]
+
+
+def run_sharded_msm(device, msm_case, mult2, rng, shapes):
+    """sharded-msm-x4: `sharded_msm` over SHARDS shards on the card:
+    msm-g1-65536's points and scalars (window 13: one msm call over a
+    batch of SHARDS MSMs of 16384 points), held to msm-g1-65536's result;
+    then SHARDS x G2_SHARD_POINTS G2 points b_i G2 (b_i from
+    1..len(mult2), one at infinity; scalars with 0, 1, r - 1), window 8,
+    against (sum b_i s_i) G2 on the host (the JAX package's G2 sharded MSM
+    fails)."""
+    from groth_sahai_tpu_torch.ops import bls12_381 as C
+    from groth_sahai_tpu_torch.ops.curve import G1, G2, g2_affine_from_ints
+    from groth_sahai_tpu_torch.parallel.sharded import sharded_msm
+    from groth_sahai_tpu_torch.utils import hostcrypto as H
+    pts1, s1, want1 = msm_case
+    n2 = SHARDS * G2_SHARD_POINTS
+    k2 = [rng.randrange(1, len(mult2) + 1) for _ in range(n2)]
+    k2[n2 // 3] = 0
+    sc2 = [rng.randrange(C.R) for _ in range(n2)]
+    sc2[:3] = [0, 1, C.R - 1]
+    pts2 = g2_affine_from_ints([mult2[k - 1] if k else None for k in k2],
+                               device)
+    s2 = fr_limbs(sc2, device)
+    mesh = virtual_mesh(device)
+    sync()
+
+    def run():
+        return (sharded_msm(mesh, G1, pts1, s1, window=13),
+                sharded_msm(mesh, G2, pts2, s2, window=8))
+
+    (o1, o2), counts, secs, peak = counted(run, shapes)
+    t0 = time.perf_counter()
+    if jac_ints(G1, o1) != want1:
+        raise AssertionError("sharded-msm-x4: the G1 MSM differs from "
+                             "msm-g1-65536's")
+    want2 = H.g2_mul((C.G2_GEN_X, C.G2_GEN_Y),
+                     sum(k * s for k, s in zip(k2, sc2)) % C.R)
+    if jac_ints(G2, o2) != want2:
+        raise AssertionError("sharded-msm-x4: the G2 MSM differs from the "
+                             "host")
+    print(f"[sharded-msm-x4] {SHARDS} shards on {device}: G1 "
+          f"{pts1[2].shape[-1]} points (window 13), G2 {n2} points (window "
+          f"8): {secs:.3f} s on the card, peak {peak:.2f} GiB; G1 equals "
+          f"msm-g1-65536's, G2 (sum b_i s_i) G2 on the host", flush=True)
+    return counts, secs, time.perf_counter() - t0, run
+
+
+def run_sharded_pairing(device, mult1, mult2, rng, shapes):
+    """sharded-pairing-4096-x4: `sharded_multi_pairing` of FUSED pairs in
+    SHARDS shards on the one card (their Miller loops one fused launch
+    an iteration, the shards a leading batch), against e(G1, G2)^(sum
+    a_i b_i). Returns (counts,
+    seconds, checks seconds, the run, (P, Q))."""
+    from groth_sahai_tpu_torch.ops.curve import (g1_affine_from_ints,
+                                                 g2_affine_from_ints)
+    from groth_sahai_tpu_torch.ops.tower import FQ12
+    from groth_sahai_tpu_torch.parallel.sharded import sharded_multi_pairing
+    a, b, P_pts, Q_pts = pairing_inputs(FUSED, mult1, mult2, rng)
+    P = g1_affine_from_ints(P_pts, device=device)
+    Q = g2_affine_from_ints(Q_pts, device=device)
+    mesh = virtual_mesh(device)
+    sync()
+
+    def run():
+        return sharded_multi_pairing(mesh, P, Q)
+
+    out, counts, secs, peak = counted(run, shapes)
+    t0 = time.perf_counter()
+    if FQ12.to_ints(out)[0] != gt_power(sum(x * y for x, y in zip(a, b))):
+        raise AssertionError("sharded-pairing-4096-x4: the product differs "
+                             "from the host")
+    print(f"[sharded-pairing-4096-x4] {FUSED} pairs in {SHARDS} shards: "
+          f"{secs:.3f} s on the card, peak {peak:.2f} GiB; matches "
+          f"e(G1, G2)^(sum a_i b_i)", flush=True)
+    return counts, secs, time.perf_counter() - t0, run, (P, Q)
+
+
+def run_batch_verify_x4(device, batch_case, shapes):
+    """batch-verify-ppe-1024-x4: batch-verify-ppe-1024's three batches
+    (randomized, randomized with slot BAD_SLOT changed, per equation) on
+    its proofs, over SHARDS shards (groups of EQUATIONS / SHARDS
+    equations, rho drawn before the split): the same verdicts."""
+    from groth_sahai_tpu_torch.models import batch as BT
+    from groth_sahai_tpu_torch.utils.rng import GsRng
+    equs, slots, bad, crs, (good, with_bad, verdicts) = batch_case
+    mesh = virtual_mesh(device)
+
+    def run():
+        return (BT.verify_ppe_batch_randomized(equs, slots, crs, GsRng(9),
+                                               mesh=mesh),
+                BT.verify_ppe_batch_randomized(equs, bad, crs, GsRng(10),
+                                               mesh=mesh),
+                BT.verify_ppe_batch(equs, bad, crs, mesh=mesh))
+
+    (g4, b4, v4), counts, secs, peak = counted(run, shapes)
+    if (g4, b4) != (good, with_bad) or v4.tolist() != verdicts.tolist():
+        raise AssertionError(
+            f"batch-verify-ppe-1024-x4: randomized {g4}, {b4} (unsharded "
+            f"{good}, {with_bad}); per-slot verdicts differ at "
+            f"{[i for i in range(len(v4)) if v4[i] != verdicts[i]]}")
+    print(f"[batch-verify-ppe-1024-x4] {len(equs)} slots in {SHARDS} groups: "
+          f"{secs:.3f} s for the three batches on the card, peak "
+          f"{peak:.2f} GiB; the verdicts equal the unsharded run's",
+          flush=True)
+    return counts, secs, 0.0, run
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_nccl(device, msm_case, pair_case, shapes):
+    """nccl-1rank: `init_distributed` with one rank on the card (NCCL, a
+    store on 127.0.0.1), `make_global_mesh` with SHARDS entries of the
+    card, flattened; sharded-msm-x4's G1 `sharded_msm` and
+    sharded-pairing-4096-x4's `sharded_multi_pairing` again, at their
+    shapes, through the all_gather merge: equal to msm-g1-65536's result
+    and to the unsharded `multi_pairing`. The group stays up for the
+    profile phase; `main` destroys it."""
+    import torch.distributed as dist
+    from groth_sahai_tpu_torch.ops.curve import G1
+    from groth_sahai_tpu_torch.ops.pairing import multi_pairing
+    from groth_sahai_tpu_torch.ops.tower import FQ12
+    from groth_sahai_tpu_torch.parallel.multihost import (flatten_mesh,
+                                                          init_distributed,
+                                                          make_global_mesh)
+    from groth_sahai_tpu_torch.parallel.sharded import (sharded_msm,
+                                                        sharded_multi_pairing)
+    pts, s, want_msm = msm_case
+    P, Q = pair_case
+    want_gt = FQ12.to_ints(multi_pairing(P, Q))[0]
+    t0 = time.perf_counter()
+    if not init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0,
+                            device=device):
+        raise AssertionError("nccl-1rank: no process group")
+    backend = dist.get_backend()
+    if backend != ("nccl" if device.type == "cuda" else "gloo"):
+        raise AssertionError(f"nccl-1rank: backend {backend}")
+    init_s = time.perf_counter() - t0
+    mesh = flatten_mesh(make_global_mesh(local_devices=[device] * SHARDS))
+    sync()
+
+    def run():
+        return (sharded_msm(mesh, G1, pts, s, window=13),
+                sharded_multi_pairing(mesh, P, Q))
+
+    (o1, o2), counts, secs, peak = counted(run, shapes)
+    if jac_ints(G1, o1) != want_msm or FQ12.to_ints(o2)[0] != want_gt:
+        raise AssertionError("nccl-1rank: a merged result differs from the "
+                             "unsharded one")
+    print(f"[nccl-1rank] {backend}, world {dist.get_world_size()}, init "
+          f"{init_s:.3f} s; {mesh.shape['chips']} shards: sharded_msm of "
+          f"{pts[2].shape[-1]} G1 points and sharded_multi_pairing of "
+          f"{P[2].shape[-1]} pairs through all_gather: {secs:.3f} s, peak "
+          f"{peak:.2f} GiB; both equal the unsharded results", flush=True)
+    return counts, secs, 0.0, run
+
+
+def run_trace(device, ppe_case, shapes):
+    """trace: one `profiling.trace` over a `verify` of
+    prove-verify-ppe-8x8's proof (True); the TensorBoard trace file it
+    writes must hold CUDA kernel events of the ported kernels."""
+    import tempfile
+    from pathlib import Path
+    from groth_sahai_tpu_torch.models.verifier import verify
+    from groth_sahai_tpu_torch.utils.profiling import trace
+    equ, proof, crs = ppe_case
+    with tempfile.TemporaryDirectory() as log_dir:
+        def run():
+            with trace(log_dir, device=device):
+                ok = verify(equ, proof, crs)
+                sync()
+            return ok
+
+        ok, counts, secs, peak = counted(run, shapes)
+        t0 = time.perf_counter()
+        files = list(Path(log_dir).glob("*.pt.trace.json"))
+        if not ok or len(files) != 1:
+            raise AssertionError(f"trace: verify {ok}, trace files {files}")
+        size = files[0].stat().st_size
+        events = json.loads(files[0].read_text())["traceEvents"]
+    names = collections.Counter(e.get("name", "") for e in events
+                                if e.get("cat") == "kernel")
+    ported = {k: sum(c for name, c in names.items() if k + "_kernel" in name)
+              for k in ORIGIN}
+    ported = {k: c for k, c in ported.items() if c}
+    if not ported:
+        raise AssertionError(f"trace: no ported kernel among the trace's "
+                             f"{sum(names.values())} kernel events")
+    print(f"[trace] verify of prove-verify-ppe-8x8 under profiling.trace: "
+          f"{secs:.3f} s (profiler on), a {size / 2 ** 20:.1f} MiB trace "
+          f"with {sum(names.values())} kernel events, of the ported "
+          f"kernels {json.dumps(ported)}", flush=True)
+    return counts, secs, time.perf_counter() - t0, lambda: verify(
+        equ, proof, crs)
+
+
+def run_parallel_paths(device, mult1, mult2, rng, phases, by_path, shapes,
+                       runs, cases):
+    """Phase 3, the parity API, the parallel layer and the trace (see
+    run_paths); cases: msm-g1-65536's, batch-verify-ppe-1024's and
+    prove-verify-ppe-8x8's inputs and results."""
+    msm_case, batch_case, ppe_case = cases
+
+    keep = keeper(by_path, phases, runs)
+
+    keep("matrix-334", run_matrix(device, mult1, mult2, rng,
+                                  shapes["matrix-334"]))
+    keep("sharded-msm-x4", run_sharded_msm(device, msm_case, mult2, rng,
+                                           shapes["sharded-msm-x4"]))
+    pair_case, = keep("sharded-pairing-4096-x4", run_sharded_pairing(
+        device, mult1, mult2, rng, shapes["sharded-pairing-4096-x4"]))
+    keep("batch-verify-ppe-1024-x4", run_batch_verify_x4(
+        device, batch_case, shapes["batch-verify-ppe-1024-x4"]))
+    keep("nccl-1rank", run_nccl(device, msm_case, pair_case,
+                                shapes["nccl-1rank"]))
+    keep("trace", run_trace(device, ppe_case, shapes["trace"]))
+
+
+def run_msm_paths(device, crs, keys, mult1, mult2, rng, phases, by_path,
+                  shapes, runs):
+    """Phase 3, the MSM paths and the Miller steps (see run_paths)."""
+    keep = keeper(by_path, phases, runs)
+
+    msm_case, = keep("msm-g1-65536", run_msm_g1(device, mult1, rng,
+                                                shapes["msm-g1-65536"]))
     t0 = time.perf_counter()
     stmt = ppe_334(device, mult1, mult2, rng)
     phases["ppe-334_statement"] = time.perf_counter() - t0
@@ -2001,10 +2423,11 @@ def run_msm_paths(device, crs, keys, mult1, mult2, rng, phases, by_path,
                                           shapes["verify-ppe-334"]))
     keep("miller-steps-4096", run_miller_steps(device, mult2, rng,
                                                shapes["miller-steps-4096"]))
-    keep("batch-verify-ppe-1024", run_batch_verify(
+    batch_case, = keep("batch-verify-ppe-1024", run_batch_verify(
         device, crs, mult1, mult2, rng, shapes["batch-verify-ppe-1024"]))
     keep("msm-chunked-g1-262144", run_msm_chunked(
         device, mult1, mult2, rng, shapes["msm-chunked-g1-262144"]))
+    return msm_case, batch_case
 
 
 def run_gs_paths(device, mult1, mult2, rng, phases, by_path, shapes, runs):
@@ -2014,23 +2437,21 @@ def run_gs_paths(device, mult1, mult2, rng, phases, by_path, shapes, runs):
     seed = SEED + 10
     crs = generate_crs(GsRng(seed), device=device)
     k1, k2, _ = crs_logs(seed)
+    keep = keeper(by_path, phases, runs)
     for k, path in enumerate(("commit-g1-334", "commit-g2-334",
                               "commit-scalar-b1-334",
                               "commit-scalar-b2-334")):
-        out = run_commit(path, device, (crs, (k1, k2), SEED + 11 + k), rng,
-                         shapes[path])
-        by_path[path], phases[path], phases[path + "_checks"], runs[path] = out
-    path = "scalar-mul-g1-4096"
-    out = run_scalar_mul(device, mult1, rng, shapes[path])
-    by_path[path], phases[path], phases[path + "_checks"], runs[path] = out
-    path = "gs-e2e"
-    by_path[path], phases[path], phases[path + "_checks"], runs[path] = \
-        run_e2e(device, shapes[path])
-    path = "prove-verify-ppe-8x8"
-    by_path[path], phases[path], _, runs[path] = run_ppe_8x8(device, rng,
-                                                             shapes[path])
-    run_msm_paths(device, crs, (k1, k2), mult1, mult2, rng, phases, by_path,
-                  shapes, runs)
+        keep(path, run_commit(path, device, (crs, (k1, k2), SEED + 11 + k),
+                              rng, shapes[path]))
+    keep("scalar-mul-g1-4096", run_scalar_mul(device, mult1, rng,
+                                              shapes["scalar-mul-g1-4096"]))
+    keep("gs-e2e", run_e2e(device, shapes["gs-e2e"]))
+    ppe_case, = keep("prove-verify-ppe-8x8", run_ppe_8x8(
+        device, rng, shapes["prove-verify-ppe-8x8"]))
+    msm_case, batch_case = run_msm_paths(device, crs, (k1, k2), mult1, mult2,
+                                         rng, phases, by_path, shapes, runs)
+    run_parallel_paths(device, mult1, mult2, rng, phases, by_path, shapes,
+                       runs, (msm_case, batch_case, ppe_case))
 
 
 # ----------------------------------------------------------------- phase 5
@@ -2252,7 +2673,8 @@ def signed_mask(k: int, rhs: int, rng):
 
 def run_paths(device, mult1, mult2, rng, phases):
     """Phase 3: the five pairing paths, then the commit, scalar-mul and
-    prove / verify paths. Returns (launch counts by path, the launch
+    prove / verify paths, then the parity API, the parallel layer and the
+    trace. Returns (launch counts by path, the launch
     shapes by path, a callable re-running each path for its profile)."""
     from groth_sahai_tpu_torch.models import kernels as MK
     from groth_sahai_tpu_torch.ops.pairing import gt_exp, pairing
@@ -2417,6 +2839,10 @@ def main() -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    finally:
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()      # nccl-1rank's
 
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -24,11 +24,19 @@ Miller loop would take the lazy tower); each equation's ratio is the same
 limbs as `miller_product_signed` of its pairs alone. The final
 exponentiations and the GT powers run in tiles of at most as many lanes.
 
-`mesh` (the reference's multi-chip sharding of the equations axis) is
-accepted only as None: the multi-GPU layer is a later slice.
+With `mesh` (a 1-D `parallel.mesh.Mesh`), the equations axis is cut into
+D contiguous groups of B / D equations, as the reference shards it; each
+group runs the flat path above on its mesh device (this process's groups
+only when the mesh spans processes). `verify_batch` joins the groups'
+verdicts in order; `verify_batch_randomized` draws rho once, before the
+split, and each group gives its rho-weighted Miller product (and, for a
+PPE, its rho-weighted target), which merge by product
+(`parallel.sharded.gather_partials`) before ONE final exponentiation.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -37,6 +45,8 @@ from ..ops import pairing as pr
 from ..ops import tower
 from ..ops.curve import G1, G2
 from ..ops.tower import FQ12
+from ..parallel.mesh import local_shards
+from ..parallel.sharded import gather_partials
 from ..utils import metrics
 from ..utils.rng import GsRng
 from . import commit_group as cg
@@ -112,11 +122,59 @@ def _check_same_type(equs, proofs):
     return ty, equs[0].x_is_scalar, equs[0].y_is_scalar
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "batch verification over a device mesh belongs to the multi-GPU "
-            "slice of the port (parallel/), not ported yet; pass mesh=None")
+def _moved(x, device):
+    """Tensors (in tuples, or the fields of a dataclass such as the CRS)
+    on `device`."""
+    if torch.is_tensor(x):
+        return x.to(device)
+    if isinstance(x, tuple):
+        return tuple(_moved(v, device) for v in x)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: _moved(getattr(x, f.name),
+                                                        device)
+                                         for f in dataclasses.fields(x)})
+    return x
+
+
+def _devices(x) -> set:
+    """The devices of the tensors in x (tuples, lists, dataclasses)."""
+    if torch.is_tensor(x):
+        return {x.device}
+    if isinstance(x, (tuple, list)):
+        return set().union(*map(_devices, x))
+    if dataclasses.is_dataclass(x):
+        return set().union(*(_devices(getattr(x, f.name))
+                             for f in dataclasses.fields(x)))
+    return set()
+
+
+def _groups(mesh, axis: str, crs, equs, proofs):
+    """[(group index, device, slice of equations)] that this process runs:
+    without a mesh one group of all B on the one device that holds the
+    CRS, equations and proofs (else ValueError: nothing is moved); with
+    one, D contiguous groups of B / D, each moved to its shard's
+    device."""
+    B = len(equs)
+    if mesh is None:
+        devs = _devices((crs, equs, proofs))
+        if len(devs) != 1:
+            raise ValueError(f"the CRS, equations and proofs lie on "
+                             f"{sorted(map(str, devs))}: without a mesh "
+                             f"they must share one device")
+        return [(0, devs.pop(), slice(0, B))]
+    D, mine = local_shards(mesh, axis)
+    if B % D:
+        raise ValueError(f"batch of {B} equations not divisible by {D} "
+                         f"shards")
+    per = B // D
+    return [(i, dev, slice(i * per, (i + 1) * per)) for i, dev in mine]
+
+
+def _merged(mesh, axis: str, parts: dict) -> list:
+    """Every group's partials in order (over a mesh, on its merge device;
+    one all_gather when it spans processes)."""
+    return list(parts.values()) if mesh is None else \
+        gather_partials(mesh, parts, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -205,59 +263,80 @@ def _tiled(fn, x, lanes_each: int, *args):
                       for s in range(0, B, bt)], 2)
 
 
+def _ratio_of(ty, x_sc, y_sc, crs, equs, proofs, device):
+    """(ratio (nl, 12, B, 2, 2), stacked targets) of B equations, on
+    `device`."""
+    crs, stacked = _moved((crs, _stack_equ_batch(equs)
+                           + _stack_proof_batch(proofs)), device)
+    return (_ratios(*_batch_pairs(ty, x_sc, y_sc, crs, *stacked)),
+            stacked[3])
+
+
 # ---------------------------------------------------------------------------
 # plain batched verification (per-equation verdicts)
 # ---------------------------------------------------------------------------
 
-def verify_batch(equs, proofs, crs: CRS, mesh=None, axis: str = "chips"):
-    """Verify B same-shape proofs (any single equation type); bool[B].
-
-    One host transfer at the end. `mesh` must be None (see the module
-    docstring).
-    """
-    _no_mesh(mesh)
-    ty, x_sc, y_sc = _check_same_type(equs, proofs)
-    a, b, g, t = _stack_equ_batch(equs)
-    c, d, pi, th = _stack_proof_batch(proofs)
-    B = len(equs)
-    metrics.count("batch_verify_equations", B)
-    ratio = _ratios(*_batch_pairs(ty, x_sc, y_sc, crs,
-                                  a, b, g, t, c, d, pi, th))
+def _verdicts(ty, ratio, t):
+    """bool[B]: each equation's final exponentiation against its target."""
     res = _tiled(pr.final_exp, ratio, 4)                  # (nl, 12, B, 2, 2)
     if ty == EquType.PairingProduct:
         tgt = _comt_ppe_target(t)                         # (nl, 12, B, 2, 2)
     else:
-        tgt = FQ12.one((B, 2, 2), device=res.device)
-    ok = torch.all(torch.all(FQ12.eq(res, tgt), -1), -1)
-    return ok.cpu().numpy()
+        tgt = FQ12.one(tuple(ratio.shape[2:]), device=res.device)
+    return torch.all(torch.all(FQ12.eq(res, tgt), -1), -1)
+
+
+def verify_batch(equs, proofs, crs: CRS, mesh=None, axis: str = "chips"):
+    """Verify B same-shape proofs (any single equation type); bool[B].
+
+    With `mesh`, B divisible by its shard count; the groups' verdicts in
+    order. One host transfer at the end.
+    """
+    ty, x_sc, y_sc = _check_same_type(equs, proofs)
+    groups = _groups(mesh, axis, crs, equs, proofs)
+    metrics.count("batch_verify_equations", len(equs))
+    oks = {i: (_verdicts(ty, *_ratio_of(ty, x_sc, y_sc, crs, equs[s],
+                                        proofs[s], dev)).long(),)
+           for i, dev, s in groups}
+    return torch.cat([ok for ok, in _merged(mesh, axis, oks)]
+                     ).bool().cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
 # randomized linear-combination verification (single verdict, ONE final exp)
 # ---------------------------------------------------------------------------
 
+def _weighted(ty, ratio, t, rho):
+    """The rho-weighted product of a batch's ratios (nl, 12, 2, 2) and,
+    for a PPE, of its targets (nl, 12); else None."""
+    powed = _tiled(pr.gt_exp, ratio, 4, rho[:, :, None, None])
+    part = pr._product_reduce(powed, axis=0)
+    if ty != EquType.PairingProduct:
+        return part, None
+    return part, pr._product_reduce(_tiled(pr.gt_exp, t, 1, rho), axis=0)
+
+
 def verify_batch_randomized(equs, proofs, crs: CRS, rng: GsRng,
                             mesh=None, axis: str = "chips"):
     """Randomized combination check: error probability ~2^-255, ONE final
     exponentiation for the whole batch. Returns a single bool (one
-    `.item()`). rho: `rng.fr_std((B,))`, the JAX package's draws."""
-    _no_mesh(mesh)
+    `.item()`). rho: `rng.fr_std((B,))`, the JAX package's draws, drawn
+    once before a mesh's split."""
     ty, x_sc, y_sc = _check_same_type(equs, proofs)
-    a, b, g, t = _stack_equ_batch(equs)
-    c, d, pi, th = _stack_proof_batch(proofs)
-    B = len(equs)
-    ratio = _ratios(*_batch_pairs(ty, x_sc, y_sc, crs,
-                                  a, b, g, t, c, d, pi, th))
-    rho = rng.fr_std((B,), device=ratio.device)
-    metrics.count("batch_verify_equations", B)
-    powed = _tiled(pr.gt_exp, ratio, 4, rho[:, :, None, None])
-    combined = pr._product_reduce(powed, axis=0)          # (nl, 12, 2, 2)
-    res = pr.final_exp(combined)
-    if ty == EquType.PairingProduct:
-        t_powed = _tiled(pr.gt_exp, t, 1, rho)            # (nl, 12, B)
-        expected = _comt_ppe_target(pr._product_reduce(t_powed, axis=0))
-    else:
-        expected = cg.comt_one(device=res.device)
+    ppe = ty == EquType.PairingProduct
+    groups = _groups(mesh, axis, crs, equs, proofs)
+    rho = rng.fr_std((len(equs),), device=groups[0][1])
+    metrics.count("batch_verify_equations", len(equs))
+    parts = {}
+    for i, dev, s in groups:
+        ratio, t = _ratio_of(ty, x_sc, y_sc, crs, equs[s], proofs[s], dev)
+        parts[i] = _weighted(ty, ratio, t, rho[:, s].to(dev))[:1 + ppe]
+    part, *t_part = [pr._product_reduce(torch.stack(list(g_parts), 2),
+                                        axis=0)
+                     for g_parts in zip(*_merged(mesh, axis, parts))]
+    res = pr.final_exp(part)
+    expected = _comt_ppe_target(t_part[0]) if ppe else \
+        cg.comt_one(device=res.device)
     return bool(cg.comt_eq(res, expected).item())
 
 

@@ -44,6 +44,8 @@ from groth_sahai_tpu_torch.models import statement as ST
 from groth_sahai_tpu_torch.models import verifier as VF
 from groth_sahai_tpu_torch.models.crs import generate_crs
 from groth_sahai_tpu_torch.ops.curve import G1, G2
+from groth_sahai_tpu_torch.parallel.mesh import make_mesh
+from groth_sahai_tpu_torch.parallel.multihost import make_global_mesh
 from groth_sahai_tpu_torch.utils import hostcrypto as H
 from groth_sahai_tpu_torch.utils import metrics
 from groth_sahai_tpu_torch.utils.convert import to_numpy
@@ -329,12 +331,16 @@ def test_metrics_count_equations(batch3, monkeypatch):
 
 
 def test_mesh_and_mixed_types_raise(batch3):
+    """A mesh whose shard count does not divide B, or of two axes, is
+    refused before any work; so are mixed or mismatched batches."""
     host, equs, proofs, _ = batch3
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        BT.verify_ppe_batch(equs, proofs, host.crs, mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        BT.verify_ppe_batch_randomized(equs, proofs, host.crs, GsRng(1),
-                                       mesh=object())
+    with pytest.raises(ValueError, match="not divisible by 2 shards"):
+        BT.verify_ppe_batch(equs, proofs, host.crs,
+                            mesh=make_mesh(2, devices=[DEV] * 2))
+    with pytest.raises(ValueError, match="flatten_mesh"):
+        BT.verify_ppe_batch_randomized(
+            equs, proofs, host.crs, GsRng(1),
+            mesh=make_global_mesh(local_devices=[DEV] * 3))
     quad = ST.QuadEqu(fr([1]), fr([1]), fr([1]).reshape(FR.n, 1, 1),
                       fr([1])[:, 0])
     with pytest.raises(ValueError, match="mixed equation types"):
@@ -345,3 +351,185 @@ def test_mesh_and_mixed_types_raise(batch3):
         proofs[0].equ_proofs[0], equ_type=ST.EquType.Quadratic)])
     with pytest.raises(ValueError, match="another type"):
         BT.verify_batch(equs[:2], [proofs[0], other], host.crs)
+
+
+def test_mismatched_devices_raise(batch3):
+    """Without a mesh nothing is moved: a CRS (or an equation) on another
+    device than the proofs is refused before any work, by both
+    verifiers."""
+    host, equs, proofs, _ = batch3
+    far = BT._moved(host.crs, "meta")
+    with pytest.raises(ValueError, match="share one device"):
+        BT.verify_batch(equs, proofs, far)
+    with pytest.raises(ValueError, match="share one device"):
+        BT.verify_batch_randomized(equs, proofs, far, GsRng(1))
+    with pytest.raises(ValueError, match="share one device"):
+        BT.verify_batch([BT._moved(equs[0], "meta")] + equs[1:], proofs,
+                        host.crs)
+
+
+# ------------------------------------------------------- over a device mesh
+#
+# Four slots, [e0, e1, e2, e0], with slot 1's pi taken from proof 2 (a
+# tampered proof), over 2 and 4 CPU shards against the unsharded call.
+# Each equation's ratio is its own limbs in any batch or tile (the tests
+# above), so `_ratios` runs through a memo keyed by an equation's pairs,
+# seeded with good3's: only the tampered slot's Miller loop is run (once);
+# a sharded call that asked for another would have built other pairs than
+# the unsharded one, and the tests check that none is asked for. The
+# lane-wise final exponentiations and GT powers go through memos filled by
+# the unsharded calls in the same way.
+
+def _slot(P, Q, b):
+    return (P[0][:, b], P[1][:, b], P[2][b], Q[0][:, :, b], Q[1][:, :, b],
+            Q[2][b])
+
+
+def _key(P, Q, mask, b):
+    return tuple(t.contiguous().numpy().tobytes()
+                 for t in _slot(P, Q, b) + (mask,))
+
+
+@pytest.fixture(scope="module")
+def memo(good3):
+    _, (P, Q, mask), ratio = good3
+    return {_key(P, Q, mask, b): ratio[:, :, b] for b in range(3)}
+
+
+def memo_ratios(memo, real=BT._ratios):
+    def ratios(P, Q, mask):
+        keys = [_key(P, Q, mask, b) for b in range(P[2].shape[0])]
+        miss = [b for b, k in enumerate(keys) if k not in memo]
+        if miss:
+            idx = torch.tensor(miss)
+            pick = lambda l, d: l.index_select(d, idx)
+            sub = real((pick(P[0], 1), pick(P[1], 1), pick(P[2], 0)),
+                       (pick(Q[0], 2), pick(Q[1], 2), pick(Q[2], 0)), mask)
+            memo.update({keys[b]: sub[:, :, j] for j, b in enumerate(miss)})
+        return torch.stack([memo[k] for k in keys], 2)
+    return ratios
+
+
+def lane_memo(memo, real):
+    """real(x, *e) on an Fq12 batch x (nl, 12, *batch), lane by lane
+    through `memo`, keyed by each lane's limbs and its exponent's (each e
+    (17, ...) broadcast over the batch): the lanes not seen before are
+    computed, in one call of `real`. For the lane-wise final
+    exponentiation and GT power, whose lanes do not depend on how a batch
+    is cut."""
+    def fn(x, *e):
+        batch = tuple(x.shape[2:])
+        xf = x.reshape(x.shape[0], x.shape[1], -1)
+        ef = [a.expand(a.shape[:1] + batch).reshape(a.shape[0], -1)
+              for a in e]
+        keys = [tuple(t[..., j].contiguous().numpy().tobytes()
+                      for t in [xf] + ef) for j in range(xf.shape[-1])]
+        miss = {}
+        for j, k in enumerate(keys):
+            if k not in memo:
+                miss.setdefault(k, j)
+        if miss:
+            idx = torch.tensor(list(miss.values()))
+            out = real(xf.index_select(-1, idx),
+                       *(a.index_select(-1, idx) for a in ef))
+            memo.update({k: out[..., i] for i, k in enumerate(miss)})
+        return torch.stack([memo[k] for k in keys], -1).reshape(x.shape)
+    return fn
+
+
+@pytest.fixture(scope="module")
+def exp_memo():
+    """Lane memos of `final_exp` and `gt_exp`, filled by the unsharded
+    calls (plain4)."""
+    return {"final_exp": {}, "gt_exp": {}}
+
+
+@pytest.fixture(scope="module")
+def batch4(batch3):
+    host, equs, proofs, _ = batch3
+    ep = proofs[1].equ_proofs[0]
+    bad = dataclasses.replace(proofs[1], equ_proofs=[dataclasses.replace(
+        ep, pi=proofs[2].equ_proofs[0].pi)])
+    return host, equs + equs[:1], [proofs[0], bad, proofs[2], proofs[0]]
+
+
+def spied_randomized(batch4, memo, exp_memo, mesh):
+    """verify_ppe_batch_randomized(GsRng(5)) with `_ratios` and `gt_exp`
+    memoized; returns (verdict, the Miller product it exponentiates, the
+    target product, memo sizes after)."""
+    host, equs, proofs = batch4
+    seen = {}
+    real_fe, real_tgt = BT.pr.final_exp, BT._comt_ppe_target
+    real_gt = BT.pr.gt_exp
+
+    def fe(f):
+        seen["combined"] = f
+        return real_fe(f)
+
+    def tgt(t):
+        seen["t"] = t
+        return real_tgt(t)
+
+    saved = BT._ratios
+    BT._ratios, BT.pr.final_exp, BT._comt_ppe_target = memo_ratios(memo), \
+        fe, tgt
+    BT.pr.gt_exp = lane_memo(exp_memo["gt_exp"], real_gt)
+    try:
+        ok = BT.verify_ppe_batch_randomized(equs, proofs, host.crs, GsRng(5),
+                                            mesh=mesh)
+    finally:
+        BT._ratios, BT.pr.final_exp, BT._comt_ppe_target = saved, real_fe, \
+            real_tgt
+        BT.pr.gt_exp = real_gt
+    return ok, seen["combined"], seen["t"], (len(memo),
+                                             len(exp_memo["gt_exp"]))
+
+
+@pytest.fixture(scope="module")
+def plain4(batch4, memo, exp_memo):
+    host, equs, proofs = batch4
+    saved, BT._ratios = BT._ratios, memo_ratios(memo)
+    real_fe = BT.pr.final_exp
+    BT.pr.final_exp = lane_memo(exp_memo["final_exp"], real_fe)
+    try:
+        ok = BT.verify_ppe_batch(equs, proofs, host.crs)
+    finally:
+        BT._ratios, BT.pr.final_exp = saved, real_fe
+    assert ok.tolist() == [True, False, True, True]
+    return ok, spied_randomized(batch4, memo, exp_memo, None)
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_verify_batch_over_mesh(batch4, memo, exp_memo, plain4, shards,
+                                monkeypatch):
+    """The per-equation verdicts over 2 and 4 shards equal the unsharded
+    call's, from the same pairs and the same final exponentiations'
+    inputs (no memo grows: `_ratios`' by the equations' pairs,
+    `final_exp`'s by its lanes)."""
+    host, equs, proofs = batch4
+    sizes = len(memo), len(exp_memo["final_exp"])
+    monkeypatch.setattr(BT, "_ratios", memo_ratios(memo))
+    monkeypatch.setattr(BT.pr, "final_exp",
+                        lane_memo(exp_memo["final_exp"], BT.pr.final_exp))
+    ok = BT.verify_ppe_batch(equs, proofs, host.crs,
+                             mesh=make_mesh(shards, devices=[DEV] * shards))
+    assert isinstance(ok, np.ndarray) and ok.dtype == bool
+    assert ok.tolist() == plain4[0].tolist()
+    assert (len(memo), len(exp_memo["final_exp"])) == sizes
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_verify_batch_randomized_over_mesh(batch4, memo, exp_memo, plain4,
+                                           shards):
+    """rho drawn once before the split: over 2 and 4 shards the verdict,
+    and the values of the rho-weighted Miller product and target product
+    (merged from the shards' partials), equal the unsharded call's; the
+    shards ask for no other Miller pairs or (value, rho) GT powers."""
+    want_ok, want_f, want_t, size = plain4[1]
+    ok, f, t, size_after = spied_randomized(
+        batch4, memo, exp_memo, make_mesh(shards, devices=[DEV] * shards))
+    assert ok is want_ok is False
+    assert size_after == size
+    assert FQ12.to_ints(f.reshape(f.shape[:2] + (4,))) == \
+        FQ12.to_ints(want_f.reshape(want_f.shape[:2] + (4,)))
+    assert FQ12.to_ints(t) == FQ12.to_ints(want_t)

@@ -246,6 +246,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import groth_sahai_tpu_torch.models.batch, groth_sahai_tpu_torch.utils.metrics\n"
         "import groth_sahai_tpu_torch.utils.serde, groth_sahai_tpu_torch.utils.native\n"
         "import groth_sahai_tpu_torch.ops.msm_chunked\n"
+        "import groth_sahai_tpu_torch.models.matrix, groth_sahai_tpu_torch.utils.profiling\n"
+        "import groth_sahai_tpu_torch.parallel.mesh, groth_sahai_tpu_torch.parallel.sharded\n"
+        "import groth_sahai_tpu_torch.parallel.multihost\n"
         "import chip_smoke\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and (\n"
         "       m == 'groth_sahai_tpu' or m.startswith('groth_sahai_tpu.')\n"

@@ -360,7 +360,9 @@ def test_bulk_readers_roundtrip_and_reject():
 
 def test_reference_gaps_carried():
     """fr_from_bytes takes values >= r as they are; gt_from_bytes checks
-    no subgroup (nor range): both as in the JAX package."""
+    no subgroup (nor range); the bulk G1 readers take an Fq coordinate
+    >= p (G1's generator with x + p for x reads as the generator), where
+    the single-point readers refuse it: all as in the JAX package."""
     big = S.fr_to_bytes(R + 5)
     assert S.fr_from_bytes(big) == JS.fr_from_bytes(big) == R + 5
     vec = S._vec_prefix(1) + big
@@ -370,6 +372,31 @@ def test_reference_gaps_carried():
     not_gt = b"".join(S.fq_to_bytes(v) for v in [1, 2] + [0] * 9 + [C.P + 1])
     assert S.gt_from_bytes(not_gt) == JS.gt_from_bytes(not_gt)
     assert S.gt_from_bytes(not_gt)[0][0] == (1, 2)
+
+    gen = (C.G1_GEN_X, C.G1_GEN_Y)
+    x_big = bytearray(S.fq_to_bytes(C.G1_GEN_X + C.P))
+    assert x_big[47] == 0x31                      # no flag bit set
+    unc = bytes(x_big) + S.fq_to_bytes(C.G1_GEN_Y)
+    if S._is_neg_fq(C.G1_GEN_Y):
+        x_big[47] |= S.FLAG_NEG
+    comp = bytes(x_big)
+    for reader, one in ((S.g1_vec_from_bytes_bulk, unc),
+                        (S.g1_vec_from_bytes_bulk_compressed, comp)):
+        blob = S._vec_prefix(1) + one
+        aff, off = reader(blob, device=DEV)       # validated: accepted
+        assert off == len(blob) and g1_affine_to_ints(aff) == [gen]
+    # the JAX package's bulk reader takes the same limbs (its validation,
+    # a jitted scalar multiplication, is not compiled here: the value is
+    # the generator)
+    blob = S._vec_prefix(1) + unc
+    jaff, _ = JS.g1_vec_from_bytes_bulk(blob, validate=False)
+    aff, _ = S.g1_vec_from_bytes_bulk(blob, validate=False, device=DEV)
+    for port, jx in zip(aff, jaff):
+        np.testing.assert_array_equal(to_numpy(port), np.asarray(jx))
+    with pytest.raises(ValueError, match="x out of field range"):
+        S.g1_point_from_bytes(comp, compressed=True)
+    with pytest.raises(ValueError, match="not on curve"):
+        S.g1_point_from_bytes(unc, compressed=False)
 
 
 # --------------------------------------------------------------- native
